@@ -151,6 +151,9 @@ def pytest_configure(config):
     # Tier-1 runs `-m 'not slow'`; long chaos/soak variants opt out.
     config.addinivalue_line(
         "markers", "slow: long-running; excluded from the tier-1 suite")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips (with a reason) "
+        "where none is visible")
 
 # Hang watchdog: any single test running >120s dumps every thread's stack
 # AND every asyncio task's coroutine stack (the part thread dumps can't see)

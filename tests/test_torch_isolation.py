@@ -1,0 +1,92 @@
+"""The port stands alone: ``ray_tpu_torch`` imports neither ``jax`` nor
+anything of the JAX package ``ray_tpu``.
+
+Checked twice: by an AST scan of every file in the package, and by
+serving two nano requests in a fresh interpreter where ``jax`` is
+poisoned in ``sys.modules`` and an import hook refuses ``ray_tpu`` and
+``ray_tpu.*`` (but not ``ray_tpu_torch``). A subprocess, because this
+suite's conftest imports JAX into the test process.
+"""
+import ast
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "ray_tpu_torch")
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "ray_tpu")
+
+
+def test_no_jax_or_reference_imports_in_source():
+    files = [os.path.join(d, f) for d, _, fs in os.walk(PKG)
+             for f in fs if f.endswith(".py")]
+    assert len(files) >= 8
+    bad = []
+    for path in files:
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [(path, n) for n in names if _forbidden(n)]
+    assert not bad, bad
+
+
+_CHILD = r"""
+import importlib.abc
+import sys
+
+sys.modules["jax"] = None          # `import jax` raises ImportError
+
+
+class _Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        top = name.split(".")[0]
+        if top in ("jax", "jaxlib", "ray_tpu"):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+
+sys.meta_path.insert(0, _Refuse())
+
+import numpy as np
+import torch
+
+from ray_tpu_torch.models import gpt
+from ray_tpu_torch.serve.engine import DecodeEngine
+
+cfg = gpt.CONFIGS["nano"]
+params = gpt.init_params(cfg, seed=0, device="cpu")
+eng = DecodeEngine(params, cfg, slots=2, chunk=4, max_len=64,
+                   prompt_buckets=(8, 16), page_size=8, device="cpu")
+try:
+    outs = [np.concatenate(list(eng.stream(
+        np.arange(n, dtype=np.int32) % cfg.vocab_size, 6)))
+        for n in (5, 11)]
+finally:
+    eng.shutdown()
+assert [o.shape for o in outs] == [(6,), (6,)], outs
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "ray_tpu")
+                and sys.modules[m] is not None)
+assert not leaked, leaked
+print("ISOLATED-OK")
+"""
+
+
+def test_serves_with_jax_and_reference_blocked():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    res = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=240)
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert "ISOLATED-OK" in res.stdout
