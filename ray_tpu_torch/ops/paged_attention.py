@@ -46,7 +46,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 MAX_HEAD_DIM = 128
 _THREADS = 128
 _WARPS = _THREADS // 32
-_SMEM_LIMIT = 48 * 1024          # static launch limit without opt-in
+_MAX_VEC = 16                    # elements in one 16-byte load (int8)
+_SMEM_LIMIT = 48 * 1024          # launch limit without an opt-in
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _lock = threading.Lock()
@@ -174,7 +175,17 @@ def _check(q, kc, vc, pt, pos, page_size, ks, vs) -> bool:
             raise ValueError(f"tensor on {t.device}, q on {dev}")
         if not t.is_contiguous():
             raise ValueError("paged_attention_cuda needs contiguous inputs")
-    smem = 4 * (MAX_HEAD_DIM + _WARPS + _THREADS + pt.shape[1] * page_size)
+    # The kernel loads 16 bytes at a time: a head row must be a
+    # power-of-two number of 16-byte vectors, and the pools aligned.
+    vec = 16 // kc.element_size()
+    lanes = hd // vec
+    if hd % vec or lanes & (lanes - 1) or not 1 <= lanes <= 32:
+        raise ValueError(f"head_dim {hd} must be a power-of-two multiple "
+                         f"of {vec} for {kc.dtype} pools")
+    if kc.data_ptr() % 16 or vc.data_ptr() % 16:
+        raise ValueError("pools must be 16-byte aligned")
+    smem = 4 * (MAX_HEAD_DIM + _WARPS + _THREADS * _MAX_VEC
+                + pt.shape[1] * page_size)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"max_pages * page_size = {pt.shape[1] * page_size}"
                          f" positions need {smem} B of shared memory "
