@@ -28,7 +28,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    divergence budget; then the same requests with 32 new tokens on an
    int8 pool (completion, launch count, budget), and at f32 on fp and
    int8 pools, where kernel and gather engines must agree stream for
-   stream.
+   stream;
+6. a profiled serve window: device busy time by kernel against wall
+   time.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Needs one card, no network.
@@ -112,16 +114,19 @@ def kernel_phase(kv: str, card: str) -> dict:
         pt[b, :n] = perm[used:used + n]      # out of order; some slots
         used += n                            # map one page past pos
     dev = torch.device("cuda")
-    q = torch.randn(B, 1, H, hd, device=dev, dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(1 if kv == "fp" else 2)
+    q = torch.randn(B, 1, H, hd, device=dev, dtype=torch.bfloat16,
+                    generator=gen)
     shape = (R, n_pages, ps, H, hd)
     if kv == "int8":
-        kc = torch.randint(-127, 128, shape, device=dev, dtype=torch.int8)
-        vc = torch.randint(-127, 128, shape, device=dev, dtype=torch.int8)
-        ks = torch.rand(R, n_pages, H, device=dev) * 0.02
-        vs = torch.rand(R, n_pages, H, device=dev) * 0.02
+        kc, vc = (torch.randint(-127, 128, shape, device=dev,
+                                dtype=torch.int8, generator=gen)
+                  for _ in range(2))
+        ks, vs = (torch.rand(R, n_pages, H, device=dev, generator=gen)
+                  * 0.02 for _ in range(2))
     else:
-        kc = torch.randn(shape, device=dev, dtype=torch.bfloat16)
-        vc = torch.randn(shape, device=dev, dtype=torch.bfloat16)
+        kc, vc = (torch.randn(shape, device=dev, dtype=torch.bfloat16,
+                              generator=gen) for _ in range(2))
         ks = vs = None
     ptd = torch.from_numpy(pt).to(dev)
     posd = torch.from_numpy(pos).to(dev)
@@ -240,6 +245,38 @@ def serve(params, cfg, reqs, *, device, attn_kernel, kv_dtype="fp",
     tpot = [(s[-1] - s[0]) / max(len(t) - 1, 1)
             for s, t in zip(stamps, toks)]
     return toks, ttft, tpot, wall, stats
+
+
+def profile_phase(params, cfg, reqs, card):
+    """Where a serve window's time goes on the card: the profiler's device
+    time by kernel over the window's wall time (the profiler's own host
+    cost inflates the wall, so the idle share is an upper bound)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        toks, _, _, wall, stats = serve(params, cfg, reqs,
+                                        device=torch.device("cuda"),
+                                        attn_kernel="cuda")
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if us > 0:
+            rows.append((us, e.key, e.count))
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    if busy_ms == 0:
+        log("profile: the profiler recorded no device time; device busy "
+            "share not measured")
+        return
+    log(f"profile [{card}]: {len(reqs)} requests, "
+        f"{sum(map(len, toks))} tokens, {stats['dispatches']} dispatches "
+        f"in {wall * 1e3:.3f} ms wall (profiled); device busy "
+        f"{busy_ms:.3f} ms = {busy_ms / (wall * 1e3):.3f} of the wall, "
+        f"idle {1 - busy_ms / (wall * 1e3):.3f}")
+    for us, key, count in sorted(rows, reverse=True)[:8]:
+        log(f"  {us / 1e3:10.3f} ms  {count:6d} x  {key[:90]}")
 
 
 def check_streams(name, toks, reqs, vocab):
@@ -405,6 +442,8 @@ def main() -> int:
         log(f"small f32 {kv} engine [{card}]: "
             f"{sum(map(len, toks32)) / wall32:.2f} tok/s; TPOT p50 "
             f"{p50(tpot32) * 1e3:.3f} ms")
+
+    profile_phase(params, cfg, reqs32[:6], card)
 
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {

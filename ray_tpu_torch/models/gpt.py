@@ -60,11 +60,6 @@ class GPTConfig:
     def head_dim(self) -> int:
         return self.d_model // self.n_head
 
-    def num_params(self) -> int:
-        d, f, v, L = self.d_model, self.d_ff, self.vocab_size, self.n_layer
-        per_layer = 4 * d * d + 2 * d * f + 2 * d  # qkv,o + mlp + 2 ln scales
-        return v * d + self.max_seq * d + L * per_layer + d
-
 
 # sizes used by benchmarks / examples (ray_tpu/models/gpt.py:79)
 CONFIGS = {

@@ -65,7 +65,6 @@ class _EngineRequest:
     max_new: int
     lane: _StreamLane
     deadline_s: Optional[float]
-    enq_t: float
     #: Tokens already delivered before a recompute preemption: the
     #: replay regenerates them (greedy decoding is deterministic) and
     #: suppresses this many from the stream.
@@ -89,10 +88,7 @@ class _Slot:
 
 
 class EngineShutdownError(RuntimeError):
-    """The engine stopped while this request was queued or decoding.
-    Retryable: the prompt and knobs fully determine a greedy stream."""
-
-    retryable = True
+    """The engine stopped while this request was queued or decoding."""
 
 
 class _PagePool:
@@ -154,8 +150,6 @@ class _PrefixCache:
         # key -> (n_tokens, prefix_bytes, pages tuple)
         self._entries: "collections.OrderedDict[bytes, Tuple[int, bytes, Tuple[int, ...]]]" = \
             collections.OrderedDict()
-        self.hits = 0
-        self.misses = 0
         self.evictions = 0
 
     def __len__(self):
@@ -184,10 +178,8 @@ class _PrefixCache:
             if hist <= 0:
                 continue
             self._entries.move_to_end(self._key(tokens, n))
-            self.hits += 1
             n_cover = -(-hist // self._ps)   # ceil
             return hist, list(pages[:n_cover])
-        self.misses += 1
         return 0, []
 
     def insert(self, tokens: np.ndarray, pages: Sequence[int]):
@@ -367,7 +359,7 @@ class DecodeEngine:
                     "engine is not accepting requests (shut down)")
             self._queue.put(_EngineRequest(
                 prompt=prompt, bucket=bucket, max_new=int(max_new),
-                lane=lane, deadline_s=deadline_s, enq_t=time.time()))
+                lane=lane, deadline_s=deadline_s))
         return lane
 
     def stream(self, prompt, max_new: int, **kw) -> _EngineStream:
@@ -670,7 +662,6 @@ class DecodeEngine:
         st = self._state[youngest]
         req = st.req
         req.skip = st.emitted
-        req.enq_t = time.time()
         self._free_slot(youngest)
         self._pending.appendleft(req)
         self._count(preempted=1)

@@ -154,6 +154,33 @@ def test_merge_span_int8_matches_jax(jax_ref):
         np.testing.assert_array_equal(tc.numpy()[p], codes[p])
 
 
+def test_kernel_wrapper_rejects_what_the_kernel_cannot_take():
+    """The wrapper validates before it hands pointers to the kernel
+    (checked here on CPU tensors, which the validation does not care
+    about): wrong dtypes, shapes, missing scales, non-contiguous pools,
+    head rows the kernel's 16-byte loads cannot tile."""
+    q, k, v, ks, vs = _pools("bfloat16", "fp")
+    tq, tk, tv, tpt, tpos, _, _ = _torch_inputs("bfloat16", q, k, v, ks, vs)
+    assert pa._check(tq, tk, tv, tpt, tpos, PS, None, None) is False
+    bad = [
+        ((tq.half(), tk, tv, tpt, tpos, PS, None, None), TypeError),
+        ((tq, tk.float(), tv.float(), tpt, tpos, PS, None, None), TypeError),
+        ((tq[:, 0], tk, tv, tpt, tpos, PS, None, None), ValueError),
+        ((tq, tk, tv, tpt.long(), tpos, PS, None, None), ValueError),
+        ((tq, tk, tv, tpt, tpos[:2], PS, None, None), ValueError),
+        ((tq, tk, tv, tpt, tpos, PS * 2, None, None), ValueError),
+        ((tq, tk.transpose(0, 1).contiguous().transpose(0, 1), tv, tpt,
+          tpos, PS, None, None), ValueError),
+        ((tq, tk.to(torch.int8), tv.to(torch.int8), tpt, tpos, PS, None,
+          None), ValueError),
+        ((tq[..., :24].contiguous(), tk[..., :24].contiguous(),
+          tv[..., :24].contiguous(), tpt, tpos, PS, None, None), ValueError),
+    ]
+    for args, exc in bad:
+        with pytest.raises(exc):
+            pa._check(*args)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kv", ["fp", "int8"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
