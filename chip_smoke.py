@@ -6,36 +6,49 @@
 Phases, each fatal on failure (non-zero exit, no result line):
 
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions,
-   and the build of the paged-attention kernel from the sources in this
-   checkout (``nvcc``, timed, with ptxas' register/spill report);
-2. the kernel (``ray_tpu_torch/ops/csrc/paged_attention.cu``) held
-   against its plain PyTorch version at GPT-2-small shapes (16 slots,
-   12 heads, head_dim 64, page 16, 64 table columns, mixed lengths up to
-   1023, out-of-order and sentinel-padded tables, a mapped page past
-   ``pos``), bf16 fp and int8 pools;
-3. kernel timings beside the plain version, ``scaled_dot_product_attention``
-   over pre-gathered contiguous K/V (a yardstick timed here only; the
-   port never calls it) and the card's bandwidth bound;
-4. a small reference check: the nano model at f32 served on the card
-   through the kernel gives the same greedy tokens as on the CPU through
-   the plain version;
+   and the build of every kernel source in this checkout
+   (``ray_tpu_torch/ops/csrc/*.cu``, one ``nvcc`` each, started
+   together; timed, with ptxas' register/spill report per kernel);
+2. K1, the paged-attention kernel (``paged_attention.cu``), held
+   against its plain PyTorch version at GPT-2-small decode shapes (16
+   slots, 12 heads, head_dim 64, page 16, 64 table columns, mixed
+   lengths up to 1023, out-of-order and sentinel-padded tables, a
+   mapped page past ``pos``), bf16 fp and int8 pools, and timed beside
+   the plain version, ``scaled_dot_product_attention`` over pre-gathered
+   contiguous K/V and the card's bandwidth bound;
+3. K2 and K3 (``flash_attention.cu``: forward, dK/dV, dQ) held against
+   their plain versions at GPT-2-small training shapes (B=8, S=1024), a
+   ragged S=1000, non-causal S=256 / Sk=512, and bf16 and f32 at
+   head_dim 32 and 128; timed at the training path's shape (B=32,
+   S=1024) beside the plain versions, SDPA forward and backward (a
+   yardstick timed here only; the port never calls it) and the bound;
+4. a small serving reference: the nano model at f32 served on the card
+   through K1 gives the same greedy tokens as on the CPU;
 5. the engine at full GPT-2-small width (``CONFIGS["small"]``, bf16,
    seeded random weights): 12 concurrent greedy requests through
    ``DecodeEngine(slots=16, chunk=8, max_len=1024, page_size=16,
-   attn_kernel="cuda")`` — every stream completes, the kernel ran
+   attn_kernel="cuda")`` — every stream completes, K1 ran
    ``n_layer * chunk`` times per dispatch, and streams match an
    ``attn_kernel="gather"`` engine on the same card within the stated
    divergence budget; then the same requests with 32 new tokens on an
-   int8 pool (completion, launch count, budget), and at f32 on fp and
-   int8 pools, where kernel and gather engines must agree stream for
-   stream;
-6. a profiled serve window: device busy time by kernel against wall
-   time.
+   int8 pool, and at f32 on fp and int8 pools, where kernel and gather
+   engines must agree stream for stream; then a profiled serve window;
+6. training: the flash and xla attention backends at full width (B=4,
+   S=1024) from the same weights and batch (gradients and the loss
+   after 2 steps within stated tolerances); nano at f32, 3 steps on the
+   card through the kernels against 3 on the CPU through the plain
+   versions; then GPT-2 small through ``make_train_step`` at bench.py's
+   shape (B=32, S=1024, bf16, ``remat="dots"``, ``attn_backend="flash"``):
+   3 warm-up and 10 timed steps, the loss finite and falling, the K2/K3
+   launch counts equal to the derived count, tok/s, MFU, peak memory,
+   and a profiled step's device busy share.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Needs one card, no network.
 """
 import json
+import math
+import re
 import subprocess
 import sys
 import threading
@@ -194,6 +207,370 @@ def kernel_phase(kv: str, card: str) -> dict:
     return rec
 
 
+FLASH_SOURCE = "ray_tpu_torch/ops/csrc/flash_attention.cu"
+FLASH_REPLACES = {"flash_attention_fwd": "ray_tpu/ops/flash_attention.py:74",
+                  "flash_attention_bwd_dkdv":
+                      "ray_tpu/ops/flash_attention.py:152",
+                  "flash_attention_bwd_dq": "ray_tpu/ops/flash_attention.py:152"}
+# Flash kernels vs their plain versions, as max |kernel - plain| over
+# max |plain| per output. f32: the same f32 arithmetic in another order
+# (and CUDA's expf), ~1e-6; 1e-4 as the CPU tests hold the plain versions
+# to JAX. bf16: the kernels round p to bf16 against each key tile's
+# running max and dS per tile, the plain versions against the row's final
+# max over one full-width block, so single roundings sit a bf16 ulp
+# (2^-8 relative) apart and sums of them drift further; 2e-2 is ~3 ulps
+# at the peak. lse is f32 in both (products of bf16 are exact in f32):
+# 1e-4 absolute at |lse| ~ 7.
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+LSE_TOL = 1e-4
+# (name, dtype, B, H, S, Sk, hd, causal): GPT-2 small at the main path's
+# head width, a ragged tail, non-causal with Sk != S, the f32 kernels at
+# nano's and 1b's head widths, and the bf16 ones at those widths too.
+FLASH_CASES = [
+    ("small", "bfloat16", 8, 12, 1024, 1024, 64, True),
+    ("ragged", "bfloat16", 2, 12, 1000, 1000, 64, True),
+    ("noncausal", "bfloat16", 2, 12, 256, 512, 64, False),
+    ("bf16-hd32", "bfloat16", 2, 4, 384, 384, 32, True),
+    ("bf16-hd128", "bfloat16", 2, 4, 512, 512, 128, True),
+    ("f32-hd32", "float32", 2, 4, 384, 384, 32, True),
+    ("f32-hd128", "float32", 2, 4, 256, 256, 128, True),
+]
+# Training: GPT-2 small at bench.py's shape (bench.py:30-84).
+TRAIN_B, TRAIN_S = 32, 1024
+# Flash vs xla on the same weights and batch (B=4, full width, bf16): per
+# parameter, max |g_flash - g_xla| / max |g_xla|. The two attention paths
+# round p and dS to bf16 at different points, and the difference passes
+# through 12 layers of bf16 GEMMs; 5e-2 is ~6 bf16 ulps of the peak.
+# Loss after 2 AdamW steps: within 2e-2 of ~10.8 (a couple of bf16 ulps of
+# the logits' scale, averaged over 4096 tokens).
+GRAD_TOL, LOSS2_TOL = 5e-2, 2e-2
+NANO_TRAIN_TOL = 1e-5          # f32: card + kernels vs CPU + plain
+
+
+def build_phase():
+    """Build every kernel source (one nvcc each, started together),
+    timed, with ptxas' per-kernel registers and spills."""
+    from ray_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    built = _build.build_all(["paged_attention", "flash_attention"])
+    log(f"build (nvcc, in parallel): {time.perf_counter() - t0:.3f} s")
+    for name, (lib, out) in built.items():
+        log(f"  {name} -> {lib}")
+        fn = ""
+        for line in out.splitlines():
+            if "Compiling entry function" in line:
+                # mangled name: keep the kernel's and its template args'
+                m = re.search(
+                    r"(flash_(?:fwd|bwd)_\w+|paged_attention_kernel\w+)",
+                    line)
+                fn = m.group(1)[:36] if m else line.split("'")[1]
+            elif "registers" in line or "spill" in line:
+                log(f"  ptxas {fn}: {line.split(':', 1)[-1].strip()}")
+
+
+def _rel_err(a, b) -> float:
+    return ((a.float() - b.float()).abs().max()
+            / b.float().abs().max().clamp_min(1e-30)).item()
+
+
+def _abs_err(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+def flash_kernel_phase(card: str) -> list:
+    """K2, K3a, K3b against their plain versions on the card at the
+    shapes of FLASH_CASES, then timed at the training path's shape (B=32,
+    H=12, S=1024, hd=64, bf16, causal) beside the plain versions, SDPA
+    (a yardstick timed here only; the port never calls it) and the
+    card's bound."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    errs = {n: 0.0 for n in FLASH_REPLACES}
+    for i, (case, dt, B, H, S, Sk, hd, causal) in enumerate(FLASH_CASES):
+        td = getattr(torch, dt)
+        gen = torch.Generator(device=dev).manual_seed(10 + i)
+        qs, k, v, do = (torch.randn(B, n, H, hd, device=dev, generator=gen)
+                        .to(td) for n in (S, Sk, Sk, S))
+        scale = 1.0 / np.sqrt(hd)
+        qs = fa.scale_q(qs, scale)
+        o, lse = fa.flash_fwd(qs, k, v, causal)
+        dq, dk, dv = fa.flash_bwd(qs, k, v, o, lse, do, scale, causal)
+        ro, rlse = fa.flash_fwd_plain(qs, k, v, causal)
+        rdq, rdk, rdv = fa.flash_bwd_plain(qs, k, v, o, lse, do, scale,
+                                           causal)
+        torch.cuda.synchronize()
+        for t in (o, lse, dq, dk, dv):
+            if not torch.isfinite(t).all():
+                raise AssertionError(f"flash {case}: non-finite output")
+        rel = {"o": _rel_err(o, ro), "dq": _rel_err(dq, rdq),
+               "dk": _rel_err(dk, rdk), "dv": _rel_err(dv, rdv)}
+        lse_err = _abs_err(lse, rlse)
+        tol = FLASH_TOL[dt]
+        log(f"flash {case} ({dt}, B={B} H={H} S={S} Sk={Sk} hd={hd} "
+            f"causal={causal}): kernel vs plain relative err "
+            + " ".join(f"{n}={e:.3g}" for n, e in rel.items())
+            + f", lse abs err={lse_err:.3g} (tolerance {tol}, lse "
+            f"{LSE_TOL})")
+        if max(rel.values()) > tol or not lse_err <= LSE_TOL:
+            raise AssertionError(f"flash {case}: kernel disagrees with the "
+                                 f"plain version")
+        if case == "small":
+            errs = {"flash_attention_fwd": _abs_err(o, ro),
+                    "flash_attention_bwd_dkdv": max(_abs_err(dk, rdk),
+                                                    _abs_err(dv, rdv)),
+                    "flash_attention_bwd_dq": _abs_err(dq, rdq)}
+            log(f"flash small: max_abs_err {errs} (peaks: o "
+                f"{ro.float().abs().max().item():.3g}, dk "
+                f"{rdk.float().abs().max().item():.3g}, dv "
+                f"{rdv.float().abs().max().item():.3g}, dq "
+                f"{rdq.float().abs().max().item():.3g})")
+        del qs, k, v, do, o, lse, dq, dk, dv, ro, rlse, rdq, rdk, rdv
+
+    # Timings at the training path's shape.
+    B, H, S, hd = TRAIN_B, 12, TRAIN_S, 64
+    gen = torch.Generator(device=dev).manual_seed(20)
+    qs, k, v, do = (torch.randn(B, S, H, hd, device=dev, generator=gen)
+                    .to(torch.bfloat16) for _ in range(4))
+    scale = 0.125
+    qs = fa.scale_q(qs, scale)
+    o, lse = fa.flash_fwd(qs, k, v, True)
+    delta = fa._delta(do, o).contiguous()
+    ms = {
+        "flash_attention_fwd": cuda_ms(lambda i: fa.flash_fwd(qs, k, v,
+                                                              True), 50),
+        "flash_attention_bwd_dkdv": cuda_ms(lambda i: fa._launch_dkdv(
+            qs, k, v, do, lse, delta, True), 50),
+        "flash_attention_bwd_dq": cuda_ms(lambda i: fa._launch_dq(
+            qs, k, v, do, lse, delta, scale, True), 50),
+    }
+    plain_fwd = cuda_ms(lambda i: fa.flash_fwd_plain(qs, k, v, True), 5, 1)
+    plain_bwd = cuda_ms(lambda i: fa.flash_bwd_plain(
+        qs, k, v, o, lse, do, scale, True), 5, 1)
+    qt, kt, vt, dot = (t.transpose(1, 2).contiguous()
+                       for t in (qs, k, v, do))
+    lib_fwd = cuda_ms(lambda i: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, scale=1.0), 50)
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
+
+    def sdpa_fwd_bwd(i):
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                             scale=1.0)
+        torch.autograd.grad(out, (qg, kg, vg), dot)
+
+    lib_bwd = cuda_ms(sdpa_fwd_bwd, 50) - lib_fwd
+    # Bound: each input read once, each output written once, over HBM
+    # rate; the products' flops for the visible (q, k) pairs over the
+    # bf16 tensor-core peak.
+    pairs = B * H * S * (S + 1) // 2
+    t_elems = B * S * H * hd * 2                     # one bf16 tensor
+    stats = B * H * S * 4                            # one f32 [B, H, S]
+    work = {"flash_attention_fwd": (4 * t_elems + stats, 4 * hd * pairs),
+            "flash_attention_bwd_dkdv": (6 * t_elems + 2 * stats,
+                                         8 * hd * pairs),
+            "flash_attention_bwd_dq": (5 * t_elems + 2 * stats,
+                                       6 * hd * pairs)}
+    records = []
+    for name, (nbytes, flops) in work.items():
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_FLOPS * 1e3
+        fwd = name == "flash_attention_fwd"
+        rec = {"name": name, "route": "cuda", "source": FLASH_SOURCE,
+               "replaces": FLASH_REPLACES[name], "launches": 0,
+               "max_abs_err": errs[name], "ms": ms[name],
+               "plain_ms": plain_fwd if fwd else plain_bwd,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "library_ms": lib_fwd if fwd else lib_bwd}
+        log(f"{name} timing [{card}] (B={B} H={H} S={S} hd={hd} bf16 "
+            f"causal): kernel_ms={rec['ms']:.6g} plain_ms="
+            f"{rec['plain_ms']:.6g} library_ms={rec['library_ms']:.6g} "
+            f"bound_ms={rec['bound_ms']:.6g} ({rec['bound_by']}: {nbytes} "
+            f"B, {flops} flop) roofline_share="
+            f"{rec['bound_ms'] / rec['ms']:.3f}")
+        records.append(rec)
+    log(f"flash backward [{card}]: K3a + K3b = "
+        f"{ms['flash_attention_bwd_dkdv'] + ms['flash_attention_bwd_dq']:.6g}"
+        f" ms (plus delta) against the plain backward {plain_bwd:.6g} ms and"
+        f" SDPA's backward {lib_bwd:.6g} ms (both compute dq, dk, dv)")
+    del qs, k, v, do, o, lse, delta, qt, kt, vt, dot, qg, kg, vg
+    torch.cuda.empty_cache()
+    return records
+
+
+def _train_batch(cfg, B, S, seed, device):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return {"tokens": torch.from_numpy(rng.integers(
+        0, min(cfg.vocab_size, 50257), (B, S + 1))).to(device)}
+
+
+def train_phase(card: str) -> dict:
+    """GPT-2 small trained through ``make_train_step`` at bench.py's
+    shape with the flash kernels: 3 warm-up steps, then 10 timed steps on
+    one repeated batch, the counts set to 0 just before them. Then one
+    profiled step. Returns the launches counted in the timed steps."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    cfg = dataclasses.replace(gpt.CONFIGS["small"], remat="dots",
+                              attn_backend="flash")
+    init, step = gpt.make_train_step(cfg, device="cuda")
+    state = init(seed=0)
+    batch = _train_batch(cfg, TRAIN_B, TRAIN_S, 5, "cuda")
+    losses = []
+    for _ in range(3):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    iters = 10
+    fa.launches.update(dict.fromkeys(fa.launches, 0))
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(fa.launches)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    L = cfg.n_layer
+    # Per step: K2 once per layer in forward and once more per layer when
+    # the remat policy recomputes the block (dots and full do: the flash
+    # call is not a matrix product); K3a and K3b once per layer.
+    recompute = gpt._remat_policy(cfg.remat) != "none"
+    want = {"flash_attention_fwd": iters * L * (2 if recompute else 1),
+            "flash_attention_bwd_dkdv": iters * L,
+            "flash_attention_bwd_dq": iters * L}
+    tok_s = TRAIN_B * TRAIN_S * iters / dt
+    flops_tok = 6 * cfg.num_params() + 12 * L * TRAIN_S * cfg.d_model
+    mfu = tok_s * flops_tok / BF16_FLOPS
+    log(f"train small bf16 [{card}] (B={TRAIN_B}, S={TRAIN_S}, remat=dots, "
+        f"flash): {tok_s:.1f} tok/s, step {dt / iters * 1e3:.3f} ms, MFU "
+        f"{mfu:.4f} (bench.py FLOPs/token {flops_tok} over {BF16_FLOPS:g}),"
+        f" peak memory {peak / 2**30:.3f} GiB")
+    log(f"train losses: {[round(x, 4) for x in losses]}")
+    log(f"train launches in {iters} steps: {counts} (want {want}: "
+        f"n_layer={L} x (2 if remat recomputes else 1) K2, n_layer each "
+        f"K3a/K3b, per step)")
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError("training loss is not finite")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"training loss did not fall: {losses}")
+    if counts != want:
+        raise AssertionError(f"flash launches {counts} != {want}")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_ms, rows = device_rows(prof)
+    if busy_ms == 0:
+        log("train profile: the profiler recorded no device time; device "
+            "busy share not measured")
+    else:
+        log(f"train profile [{card}]: one step, device busy {busy_ms:.3f} "
+            f"ms of {wall * 1e3:.3f} ms wall (profiled) = "
+            f"{busy_ms / (wall * 1e3):.3f}, idle "
+            f"{1 - busy_ms / (wall * 1e3):.3f}")
+        for us, key, count in sorted(rows, reverse=True)[:10]:
+            log(f"  {us / 1e3:10.3f} ms  {count:6d} x  {key[:90]}")
+    del state
+    torch.cuda.empty_cache()
+    return counts
+
+
+def flash_vs_xla_phase(card: str) -> None:
+    """The flash and xla attention backends on the card, full GPT-2-small
+    width, B=4, S=1024, bf16, the same weights and batch: per-parameter
+    gradient error and the loss after 2 steps."""
+    import dataclasses
+
+    import torch
+
+    from ray_tpu_torch.models import gpt
+
+    base = gpt.CONFIGS["small"]
+    batch = _train_batch(base, 4, TRAIN_S, 6, "cuda")
+    grads, loss2 = {}, {}
+    for backend in ("flash", "xla"):
+        cfg = dataclasses.replace(base, attn_backend=backend)
+        init, step = gpt.make_train_step(cfg, device="cuda")
+        state = init(seed=0)
+        loss, _ = gpt.loss_fn(state["params"], batch, cfg)
+        loss.backward()
+        grads[backend] = {n: p.grad.detach().clone()
+                          for n, p in state["params"].items()}
+        for _ in range(2):
+            state, m = step(state, batch)
+        loss2[backend] = float(m["loss"])
+        del state
+    errs = {n: _rel_err(grads["flash"][n], grads["xla"][n])
+            for n in grads["xla"]}
+    worst = max(errs, key=errs.get)
+    dl = abs(loss2["flash"] - loss2["xla"])
+    log(f"flash vs xla [{card}] (small, B=4, S={TRAIN_S}, bf16): gradient "
+        f"relative err max {errs[worst]:.4g} ({worst}; tolerance "
+        f"{GRAD_TOL}); loss after 2 steps flash {loss2['flash']:.6f} xla "
+        f"{loss2['xla']:.6f} |diff| {dl:.3g} (tolerance {LOSS2_TOL})")
+    if errs[worst] > GRAD_TOL or not dl <= LOSS2_TOL:
+        raise AssertionError("flash and xla training disagree beyond the "
+                             "stated tolerance")
+    del grads
+    torch.cuda.empty_cache()
+
+
+def nano_train_phase() -> None:
+    """nano at f32: 3 steps on the card through the kernels against 3
+    steps on the CPU through the plain versions, same weights and batch."""
+    import dataclasses
+
+    import torch
+
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    cfg = dataclasses.replace(gpt.CONFIGS["nano"], dtype=torch.float32,
+                              attn_backend="flash")
+    weights = gpt.init_params(cfg, seed=0, device="cpu")
+    losses = {}
+    for device in ("cpu", "cuda"):
+        init, step = gpt.make_train_step(cfg, device=device)
+        state = init(params=weights)
+        batch = _train_batch(cfg, 8, 128, 7, device)
+        before = dict(fa.launches)
+        out = []
+        for _ in range(3):
+            state, m = step(state, batch)
+            out.append(float(m["loss"]))
+        losses[device] = out
+        ran = {n: fa.launches[n] - before[n] for n in before}
+        if device == "cuda" and not all(ran.values()):
+            raise AssertionError(f"nano on the card skipped a kernel: {ran}")
+    diff = max(abs(a - b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    log(f"nano f32 training: card+kernels {losses['cuda']} vs CPU+plain "
+        f"{losses['cpu']}, max |diff| {diff:.3g} (tolerance "
+        f"{NANO_TRAIN_TOL})")
+    if not diff <= NANO_TRAIN_TOL:
+        raise AssertionError("nano f32 training: card and CPU disagree")
+
+
 def serve(params, cfg, reqs, *, device, attn_kernel, kv_dtype="fp",
           slots=16, chunk=8, max_len=1024, page_size=16):
     """Queue every request, start the driver, drain all streams from
@@ -247,6 +624,20 @@ def serve(params, cfg, reqs, *, device, attn_kernel, kv_dtype="fp",
     return toks, ttft, tpot, wall, stats
 
 
+def device_rows(prof):
+    """(device busy ms, [(us, name, count)]) from the profiler's device
+    events only (kernels, copies, memsets). A host op's own device time
+    is the time of the kernels it launched, so summing host ops and
+    kernels together would count each kernel twice."""
+    from torch.autograd import DeviceType
+
+    rows = [(e.self_device_time_total, e.key, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    return sum(r[0] for r in rows) / 1e3, rows
+
+
 def profile_phase(params, cfg, reqs, card):
     """Where a serve window's time goes on the card: the profiler's device
     time by kernel over the window's wall time (the profiler's own host
@@ -259,13 +650,7 @@ def profile_phase(params, cfg, reqs, card):
         toks, _, _, wall, stats = serve(params, cfg, reqs,
                                         device=torch.device("cuda"),
                                         attn_kernel="cuda")
-    rows = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0))
-        if us > 0:
-            rows.append((us, e.key, e.count))
-    busy_ms = sum(r[0] for r in rows) / 1e3
+    busy_ms, rows = device_rows(prof)
     if busy_ms == 0:
         log("profile: the profiler recorded no device time; device busy "
             "share not measured")
@@ -334,15 +719,11 @@ def main() -> int:
         f"{torch.cuda.get_device_capability(0)}")
 
     # ---- 1. build
-    t0 = time.perf_counter()
-    lib, compiler_out = pa.build()
-    log(f"K1 build: {time.perf_counter() - t0:.3f} s -> {lib}")
-    for line in compiler_out.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    build_phase()
 
-    # ---- 2-3. kernel vs plain, timings
+    # ---- 2-3. kernels vs plain, timings
     records = [kernel_phase("fp", card), kernel_phase("int8", card)]
+    flash_records = flash_kernel_phase(card)
 
     # ---- 4. small reference: nano f32, card+kernel vs CPU+plain
     nano = dataclasses.replace(gpt.CONFIGS["nano"], dtype=torch.float32)
@@ -444,6 +825,16 @@ def main() -> int:
             f"{p50(tpot32) * 1e3:.3f} ms")
 
     profile_phase(params, cfg, reqs32[:6], card)
+    del params, params32
+    torch.cuda.empty_cache()
+
+    # ---- 7. training: flash vs xla, nano f32 card vs CPU, GPT-2 small
+    flash_vs_xla_phase(card)
+    nano_train_phase()
+    counts = train_phase(card)
+    for rec in flash_records:
+        rec["launches"] = counts[rec["name"]]
+    records += flash_records
 
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {

@@ -16,20 +16,35 @@ so the two can be held against each other on the same weights:
   reference's ``preferred_element_type=jnp.float32`` does;
 - GELU is the tanh approximation, which is ``jax.nn.gelu``'s default.
 
+Training (``gpt.py:344-559``): :func:`forward` with the remat policies,
+:func:`loss_fn` with the chunked cross-entropy, and
+:func:`make_train_step` (single card, ``torch.optim.AdamW``). Attention
+goes through :func:`_attention`: ``"flash"`` is the hand-written kernel
+pair of :mod:`ray_tpu_torch.ops.flash_attention`, ``"xla"`` the plain
+masked-softmax einsums. The training state is updated in place (the
+parameters and the optimizer's moments), where the reference returns a
+new pytree.
+
 Dense FFN only: MoE (``n_experts > 0``) belongs to a later slice.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Dict, Mapping, Optional
+from typing import Any, Callable, Dict, Iterable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
-from .._private.device import DeviceLike, resolve_device
+from .._private.device import (DeviceLike, resolve_device,
+                               set_matmul_precision)
+from ..ops.flash_attention import flash_attention
+from ..ops.flash_attention import supported as flash_supported
 
 Params = Dict[str, torch.Tensor]
 
@@ -48,17 +63,54 @@ class GPTConfig:
     max_seq: int = 1024
     dtype: torch.dtype = torch.bfloat16      # activation/matmul dtype
     param_dtype: torch.dtype = torch.float32  # master params
+    remat: Any = "dots"              # none|dots|full (bool accepted)
+    attn_backend: str = "auto"       # auto | xla | flash
     n_experts: int = 0               # >0 → MoE FFN (not in this port yet)
+    loss_chunk: int = 0              # seq chunk for cross-entropy (0=off):
+    # only one chunk's f32 [B, chunk, vocab] logits are live at a time and
+    # backward re-projects them (``gpt.py:55``); needed where the whole
+    # logits tensor would not fit (the 1b preset).
 
     def __post_init__(self):
         if self.n_experts > 0:
             raise NotImplementedError(
                 "MoE configs (n_experts > 0) are not ported yet; the "
                 "torch port serves dense-FFN GPTs only")
+        if self.attn_backend in ("ring", "ulysses"):
+            raise NotImplementedError(
+                f"attn_backend={self.attn_backend!r} (sequence-parallel "
+                f"attention) is not ported yet: ROADMAP.md Queue 1, "
+                f"parallel/")
+        if self.attn_backend not in ATTN_BACKENDS:
+            raise ValueError(f"unknown attn_backend {self.attn_backend!r}")
+        if _remat_policy(self.remat) not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat policy {self.remat!r}")
 
     @property
     def head_dim(self) -> int:
         return self.d_model // self.n_head
+
+    def num_params(self) -> int:
+        d, f, v, L = self.d_model, self.d_ff, self.vocab_size, self.n_layer
+        per_layer = 4 * d * d + 2 * d * f + 2 * d  # qkv,o + mlp + 2 ln scales
+        return v * d + self.max_seq * d + L * per_layer + d
+
+    def flops_per_token(self) -> int:
+        # 6ND approximation per forward+backward token.
+        return 6 * self.num_params()
+
+
+REMAT_POLICIES = ("none", "dots", "full")
+ATTN_BACKENDS = ("auto", "xla", "flash")
+
+
+def _remat_policy(remat) -> str:
+    """The reference's ``{True: "full", False: "none"}`` bool mapping."""
+    if remat is True:
+        return "full"
+    if remat is False:
+        return "none"
+    return remat
 
 
 # sizes used by benchmarks / examples (ray_tpu/models/gpt.py:79)
@@ -68,7 +120,7 @@ CONFIGS = {
     "small": GPTConfig(),                                   # GPT-2 124M
     "medium": GPTConfig(n_layer=24, n_head=16, d_model=1024, d_ff=4096),
     "1b": GPTConfig(n_layer=24, n_head=16, d_model=2048, d_ff=8192,
-                    max_seq=2048),
+                    max_seq=2048, loss_chunk=256),
 }
 
 
@@ -177,6 +229,25 @@ def _attention_xla(q, k, v, cfg: GPTConfig) -> torch.Tensor:
                         v.float()).to(q.dtype)
 
 
+def _resolve_attn_backend(cfg: GPTConfig, q: torch.Tensor) -> str:
+    """``auto`` → ``flash`` on CUDA tensors the kernels take, else
+    ``xla`` (the reference resolves ``auto`` to xla off the TPU)."""
+    if cfg.attn_backend != "auto":
+        return cfg.attn_backend
+    if q.device.type == "cuda" and flash_supported(q):
+        return "flash"
+    return "xla"
+
+
+def _attention(q, k, v, cfg: GPTConfig) -> torch.Tensor:
+    """[B, S, H, hd] causal attention by the configured backend
+    (``gpt.py:194``). ``flash`` on CUDA tensors launches the kernels or
+    raises."""
+    if _resolve_attn_backend(cfg, q) == "flash":
+        return flash_attention(q, k, v, causal=True)
+    return _attention_xla(q, k, v, cfg)
+
+
 def _block(x: torch.Tensor, p: Params, cfg: GPTConfig) -> torch.Tensor:
     """One dense transformer block (``gpt.py:234``)."""
     B, S, d = x.shape
@@ -185,24 +256,164 @@ def _block(x: torch.Tensor, p: Params, cfg: GPTConfig) -> torch.Tensor:
     q = _mm(h, p["wq"], cfg.dtype).reshape(B, S, H, hd)
     k = _mm(h, p["wk"], cfg.dtype).reshape(B, S, H, hd)
     v = _mm(h, p["wv"], cfg.dtype).reshape(B, S, H, hd)
-    att = _attention_xla(q, k, v, cfg).reshape(B, S, d)
+    att = _attention(q, k, v, cfg).reshape(B, S, d)
     x = x + _mm(att, p["wo"], cfg.dtype)
     h = _rmsnorm(x, p["ln2_scale"])
     h = _gelu(_mm(h, p["w1"], cfg.dtype))
     return x + _mm(h, p["w2"], cfg.dtype)
 
 
-def forward(params: Params, tokens: torch.Tensor, cfg: GPTConfig
-            ) -> torch.Tensor:
-    """tokens [B, S] int → logits [B, S, vocab] float32."""
+# Matrix products: what ``jax.checkpoint_policies.checkpoint_dots`` keeps.
+# ``matmul``/``einsum`` reach the dispatcher as these.
+_DOT_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                      torch.ops.aten.addmm.default,
+                      torch.ops.aten.baddbmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn: Callable, policy: str, *args):
+    """``fn(*args)`` under the remat policy (``gpt.py:364-373``): ``full``
+    recomputes everything in backward, ``dots`` keeps matrix-product
+    outputs and recomputes the rest (the flash kernel is not a product, so
+    its forward runs again), ``none`` saves every activation. Without
+    autograd there is nothing to save, and ``fn`` just runs."""
+    if policy == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    if policy == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=functools.partial(
+                          create_selective_checkpoint_contexts, _save_dots))
+
+
+def forward(params: Params, tokens: torch.Tensor, cfg: GPTConfig, *,
+            final_hidden: bool = False) -> torch.Tensor:
+    """tokens [B, S] int → logits [B, S, vocab] float32
+    (``gpt.py:344``). ``final_hidden`` skips the vocab projection and
+    returns the post-norm hidden states (the chunked loss projects per
+    chunk itself)."""
     tokens = torch.as_tensor(tokens, device=params["embed"].device).long()
     S = tokens.shape[1]
     x = params["embed"].to(cfg.dtype)[tokens]
     x = x + params["pos_embed"][:S].to(cfg.dtype)[None]
+    policy = _remat_policy(cfg.remat)
     for i in range(cfg.n_layer):
-        x = _block(x, layer_params(params, i), cfg)
+        x = _remat(_block, policy, x, layer_params(params, i), cfg)
     x = _rmsnorm(x, params["ln_f_scale"])
+    if final_hidden:
+        return x
     return _project_vocab(x, params["embed"], cfg)
+
+
+def _ce_from_logits(logits: torch.Tensor, targets: torch.Tensor
+                    ) -> torch.Tensor:
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = logp.gather(-1, targets[..., None].long())[..., 0]
+    return -ll.mean()
+
+
+def _chunk_ce_sum(xc, embed, tc, cfg: GPTConfig) -> torch.Tensor:
+    return _ce_from_logits(_project_vocab(xc, embed, cfg), tc) * tc.numel()
+
+
+def _chunked_ce(x, embed, targets, cfg: GPTConfig) -> torch.Tensor:
+    """Cross-entropy over the vocab projection in sequence chunks of
+    ``cfg.loss_chunk`` (``gpt.py:448``): each chunk is checkpointed, so
+    only one chunk's f32 logits are live and backward re-projects. A
+    ragged tail is one more, unchunked, piece."""
+    B, S, _ = x.shape
+    chunk = cfg.loss_chunk
+    n = S // chunk
+    if n == 0:
+        n, chunk = 1, S
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(n):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        total = total + _remat(_chunk_ce_sum, "full", x[:, sl], embed,
+                               targets[:, sl], cfg)
+    if S > n * chunk:
+        total = total + _chunk_ce_sum(x[:, n * chunk:], embed,
+                                      targets[:, n * chunk:], cfg)
+    return total / (B * S)
+
+
+def loss_fn(params: Params, batch: Mapping, cfg: GPTConfig
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross-entropy (``gpt.py:476``). batch: ``tokens``
+    [B, S+1], or ``tokens`` and ``targets`` [B, S]. Returns (loss,
+    {"loss", "perplexity"}), the metrics detached."""
+    dev = params["embed"].device
+    if "targets" in batch:
+        tokens, targets = batch["tokens"], batch["targets"]
+        tokens = torch.as_tensor(tokens, device=dev)
+        targets = torch.as_tensor(targets, device=dev)
+    else:
+        full = torch.as_tensor(batch["tokens"], device=dev)
+        tokens, targets = full[:, :-1], full[:, 1:]
+    if cfg.loss_chunk:
+        x = forward(params, tokens, cfg, final_hidden=True)
+        loss = _chunked_ce(x, params["embed"], targets, cfg)
+    else:
+        loss = _ce_from_logits(forward(params, tokens, cfg), targets)
+    done = loss.detach()
+    return loss, {"loss": done, "perplexity": torch.exp(done)}
+
+
+#: ``optax.adamw(3e-4, weight_decay=0.01)`` as the reference's
+#: ``make_train_step`` builds it (optax's b1, b2, eps defaults); decay on
+#: every parameter, as optax with no mask.
+ADAMW_DEFAULTS = dict(lr=3e-4, betas=(0.9, 0.999), eps=1e-8,
+                      weight_decay=0.01)
+
+
+def _default_optimizer(params: Iterable[torch.Tensor]
+                       ) -> torch.optim.Optimizer:
+    return torch.optim.AdamW(params, **ADAMW_DEFAULTS)
+
+
+def make_train_step(cfg: GPTConfig, optimizer: Optional[Callable[
+        [Iterable[torch.Tensor]], torch.optim.Optimizer]] = None, *,
+        device: DeviceLike = None):
+    """(init, step) for single-card training (``gpt.py:499``).
+
+    - ``init(seed=0, params=None)`` → ``{"params", "opt", "step"}``:
+      f32 master parameters (seeded :func:`init_params`, or a copy of
+      ``params``, e.g. :func:`params_from_numpy`'s) and the optimizer
+      ``optimizer(params)`` builds (default ``torch.optim.AdamW`` with
+      :data:`ADAMW_DEFAULTS`).
+    - ``step(state, batch)`` → ``(state, {"loss", "perplexity"})``: one
+      forward/backward/update; parameters and optimizer state are
+      updated in place. The forward casts the master parameters to
+      ``cfg.dtype``.
+
+    The mesh, sharding rules and donation of the reference are not
+    ported (ROADMAP.md Queue 1, ``parallel/``)."""
+    dev = resolve_device(device)
+    set_matmul_precision(dev)
+    make_opt = optimizer or _default_optimizer
+
+    def init(seed: int = 0, params: Optional[Params] = None) -> Dict:
+        if params is None:
+            params = init_params(cfg, seed, dev)
+        params = {k: t.detach().to(device=dev, dtype=cfg.param_dtype)
+                  .clone().requires_grad_(True) for k, t in params.items()}
+        return {"params": params, "opt": make_opt(list(params.values())),
+                "step": 0}
+
+    def step(state: Dict, batch: Mapping) -> Tuple[Dict, Dict]:
+        opt = state["opt"]
+        opt.zero_grad(set_to_none=True)
+        loss, metrics = loss_fn(state["params"], batch, cfg)
+        loss.backward()
+        opt.step()
+        return ({"params": state["params"], "opt": opt,
+                 "step": state["step"] + 1}, metrics)
+
+    return init, step
 
 
 class GPT(nn.Module):

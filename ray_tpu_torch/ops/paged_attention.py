@@ -18,31 +18,23 @@ pools pass per-(page, head) f32 scales ``ks``/``vs [n_pages, H]``.
   :data:`launches` counts its launches.
 
 The kernel is built from the source in this package at first use, by
-``nvcc`` into a shared library with a plain C interface (keyed by a hash
-of the source and flags, under ``build/kernels/`` at the checkout root),
-and loaded with ``ctypes``.
+``nvcc`` into a shared library with a plain C interface
+(:mod:`ray_tpu_torch.ops._build`), and loaded with ``ctypes``.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
-from pathlib import Path
-from typing import Optional, Tuple
+from typing import Optional
 
 import numpy as np
 import torch
 
+from . import _build
+
 #: Kernel launches made by :func:`paged_attention_cuda` in this process.
 launches = 0
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_HEAD_DIM = 128
 _THREADS = 128
 _WARPS = _THREADS // 32
@@ -93,43 +85,11 @@ def paged_attention_gather(q, kc, vc, pt, pos, page_size: int,
                         hv.float()).to(q.dtype)
 
 
-def _nvcc() -> str:
-    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
-            return os.path.join(home, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME): the paged "
-                           "attention kernel is built from source")
-    return found
-
-
-def build() -> Tuple[Path, str]:
-    """Compile ``csrc/paged_attention.cu`` unless a library for this exact
-    source and flag set exists. Returns ``(library path, compiler
-    output)``; the output is empty when the library was already built."""
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
-                         ).hexdigest()[:16]
-    out = _BUILD_DIR / f"paged_attention-{tag}.so"
-    if out.exists():
-        return out, ""
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{res.stdout}\n{res.stderr}")
-    os.replace(tmp, out)
-    return out, res.stdout + res.stderr
-
-
 def _load():
     global _lib
     with _lock:
         if _lib is None:
-            path, _ = build()
+            path, _ = _build.build("paged_attention")
             lib = ctypes.CDLL(str(path))
             fn = lib.rt_paged_attention
             vp, ci = ctypes.c_void_p, ctypes.c_int

@@ -2,7 +2,8 @@
 anything of the JAX package ``ray_tpu``.
 
 Checked twice: by an AST scan of every file in the package, and by
-serving two nano requests in a fresh interpreter where ``jax`` is
+serving two nano requests and taking a nano train step (flash attention,
+``dots`` remat) in a fresh interpreter where ``jax`` is
 poisoned in ``sys.modules`` and an import hook refuses ``ray_tpu`` and
 ``ray_tpu.*`` (but not ``ray_tpu_torch``). A subprocess, because this
 suite's conftest imports JAX into the test process.
@@ -57,6 +58,8 @@ class _Refuse(importlib.abc.MetaPathFinder):
 
 sys.meta_path.insert(0, _Refuse())
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -74,6 +77,11 @@ try:
 finally:
     eng.shutdown()
 assert [o.shape for o in outs] == [(6,), (6,)], outs
+tcfg = dataclasses.replace(cfg, attn_backend="flash", remat="dots")
+init, step = gpt.make_train_step(tcfg, device="cpu")
+state, metrics = step(init(seed=0), {"tokens": np.arange(
+    2 * 17, dtype=np.int64).reshape(2, 17) % cfg.vocab_size})
+assert state["step"] == 1 and bool(torch.isfinite(metrics["loss"]))
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "ray_tpu")
                 and sys.modules[m] is not None)
