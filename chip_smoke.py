@@ -17,11 +17,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
    the plain version, ``scaled_dot_product_attention`` over pre-gathered
    contiguous K/V and the card's bandwidth bound;
 3. K2 and K3 (``flash_attention.cu``: forward, dK/dV, dQ) held against
-   their plain versions at GPT-2-small training shapes (B=8, S=1024), a
+   their plain versions at the training path's shape (B=32, H=12,
+   S=1024, hd=64, bf16, causal; the records' max_abs_err), at B=8, a
    ragged S=1000, non-causal S=256 / Sk=512, and bf16 and f32 at
-   head_dim 32 and 128; timed at the training path's shape (B=32,
-   S=1024) beside the plain versions, SDPA forward and backward (a
-   yardstick timed here only; the port never calls it) and the bound;
+   head_dim 32 and 128; timed at the training path's shape beside the
+   plain versions, SDPA forward and backward (a yardstick timed here
+   only; the port never calls it) and the bound;
 4. a small serving reference: the nano model at f32 served on the card
    through K1 gives the same greedy tokens as on the CPU;
 5. the engine at full GPT-2-small width (``CONFIGS["small"]``, bf16,
@@ -278,12 +279,51 @@ def _abs_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
+def _flash_hold(case, qs, k, v, do, scale, causal) -> dict:
+    """K2, K3a, K3b against their plain versions on one seeded input,
+    fatal on disagreement. Returns each kernel's max |kernel - plain|."""
+    import torch
+
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    o, lse = fa.flash_fwd(qs, k, v, causal)
+    dq, dk, dv = fa.flash_bwd(qs, k, v, o, lse, do, scale, causal)
+    ro, rlse = fa.flash_fwd_plain(qs, k, v, causal)
+    rdq, rdk, rdv = fa.flash_bwd_plain(qs, k, v, o, lse, do, scale, causal)
+    torch.cuda.synchronize()
+    for t in (o, lse, dq, dk, dv):
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"flash {case}: non-finite output")
+    rel = {"o": _rel_err(o, ro), "dq": _rel_err(dq, rdq),
+           "dk": _rel_err(dk, rdk), "dv": _rel_err(dv, rdv)}
+    lse_err = _abs_err(lse, rlse)
+    tol = FLASH_TOL[str(qs.dtype).split(".")[-1]]
+    B, S, H, hd = qs.shape
+    log(f"flash {case} ({qs.dtype}, B={B} H={H} S={S} Sk={k.shape[1]} "
+        f"hd={hd} causal={causal}): kernel vs plain relative err "
+        + " ".join(f"{n}={e:.3g}" for n, e in rel.items())
+        + f", lse abs err={lse_err:.3g} (tolerance {tol}, lse {LSE_TOL})")
+    if max(rel.values()) > tol or not lse_err <= LSE_TOL:
+        raise AssertionError(f"flash {case}: kernel disagrees with the "
+                             f"plain version")
+    errs = {"flash_attention_fwd": _abs_err(o, ro),
+            "flash_attention_bwd_dkdv": max(_abs_err(dk, rdk),
+                                            _abs_err(dv, rdv)),
+            "flash_attention_bwd_dq": _abs_err(dq, rdq)}
+    log(f"flash {case}: max_abs_err {errs} (peaks: o "
+        f"{ro.float().abs().max().item():.3g}, dk "
+        f"{rdk.float().abs().max().item():.3g}, dv "
+        f"{rdv.float().abs().max().item():.3g}, dq "
+        f"{rdq.float().abs().max().item():.3g})")
+    return errs
+
+
 def flash_kernel_phase(card: str) -> list:
     """K2, K3a, K3b against their plain versions on the card at the
-    shapes of FLASH_CASES, then timed at the training path's shape (B=32,
-    H=12, S=1024, hd=64, bf16, causal) beside the plain versions, SDPA
-    (a yardstick timed here only; the port never calls it) and the
-    card's bound."""
+    shapes of FLASH_CASES and at the training path's shape (B=32, H=12,
+    S=1024, hd=64, bf16, causal), whose errors go into the records; then
+    timed at that shape beside the plain versions, SDPA (a yardstick
+    timed here only; the port never calls it) and the card's bound."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -291,54 +331,25 @@ def flash_kernel_phase(card: str) -> list:
     from ray_tpu_torch.ops import flash_attention as fa
 
     dev = torch.device("cuda")
-    errs = {n: 0.0 for n in FLASH_REPLACES}
     for i, (case, dt, B, H, S, Sk, hd, causal) in enumerate(FLASH_CASES):
         td = getattr(torch, dt)
         gen = torch.Generator(device=dev).manual_seed(10 + i)
         qs, k, v, do = (torch.randn(B, n, H, hd, device=dev, generator=gen)
                         .to(td) for n in (S, Sk, Sk, S))
         scale = 1.0 / np.sqrt(hd)
-        qs = fa.scale_q(qs, scale)
-        o, lse = fa.flash_fwd(qs, k, v, causal)
-        dq, dk, dv = fa.flash_bwd(qs, k, v, o, lse, do, scale, causal)
-        ro, rlse = fa.flash_fwd_plain(qs, k, v, causal)
-        rdq, rdk, rdv = fa.flash_bwd_plain(qs, k, v, o, lse, do, scale,
-                                           causal)
-        torch.cuda.synchronize()
-        for t in (o, lse, dq, dk, dv):
-            if not torch.isfinite(t).all():
-                raise AssertionError(f"flash {case}: non-finite output")
-        rel = {"o": _rel_err(o, ro), "dq": _rel_err(dq, rdq),
-               "dk": _rel_err(dk, rdk), "dv": _rel_err(dv, rdv)}
-        lse_err = _abs_err(lse, rlse)
-        tol = FLASH_TOL[dt]
-        log(f"flash {case} ({dt}, B={B} H={H} S={S} Sk={Sk} hd={hd} "
-            f"causal={causal}): kernel vs plain relative err "
-            + " ".join(f"{n}={e:.3g}" for n, e in rel.items())
-            + f", lse abs err={lse_err:.3g} (tolerance {tol}, lse "
-            f"{LSE_TOL})")
-        if max(rel.values()) > tol or not lse_err <= LSE_TOL:
-            raise AssertionError(f"flash {case}: kernel disagrees with the "
-                                 f"plain version")
-        if case == "small":
-            errs = {"flash_attention_fwd": _abs_err(o, ro),
-                    "flash_attention_bwd_dkdv": max(_abs_err(dk, rdk),
-                                                    _abs_err(dv, rdv)),
-                    "flash_attention_bwd_dq": _abs_err(dq, rdq)}
-            log(f"flash small: max_abs_err {errs} (peaks: o "
-                f"{ro.float().abs().max().item():.3g}, dk "
-                f"{rdk.float().abs().max().item():.3g}, dv "
-                f"{rdv.float().abs().max().item():.3g}, dq "
-                f"{rdq.float().abs().max().item():.3g})")
-        del qs, k, v, do, o, lse, dq, dk, dv, ro, rlse, rdq, rdk, rdv
+        _flash_hold(case, fa.scale_q(qs, scale), k, v, do, scale, causal)
+        del qs, k, v, do
 
-    # Timings at the training path's shape.
+    # The training path's shape: held against the plain versions (these
+    # errors are the records'), then timed.
     B, H, S, hd = TRAIN_B, 12, TRAIN_S, 64
     gen = torch.Generator(device=dev).manual_seed(20)
     qs, k, v, do = (torch.randn(B, S, H, hd, device=dev, generator=gen)
                     .to(torch.bfloat16) for _ in range(4))
     scale = 0.125
     qs = fa.scale_q(qs, scale)
+    errs = _flash_hold("train", qs, k, v, do, scale, True)
+    torch.cuda.empty_cache()
     o, lse = fa.flash_fwd(qs, k, v, True)
     delta = fa._delta(do, o).contiguous()
     ms = {

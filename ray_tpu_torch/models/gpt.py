@@ -32,6 +32,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import warnings
 from typing import Any, Callable, Dict, Iterable, Mapping, Optional, Tuple
 
 import numpy as np
@@ -231,11 +232,18 @@ def _attention_xla(q, k, v, cfg: GPTConfig) -> torch.Tensor:
 
 def _resolve_attn_backend(cfg: GPTConfig, q: torch.Tensor) -> str:
     """``auto`` → ``flash`` on CUDA tensors the kernels take, else
-    ``xla`` (the reference resolves ``auto`` to xla off the TPU)."""
+    ``xla`` (the reference resolves ``auto`` to xla off the TPU). A CUDA
+    tensor the kernels do not take warns that attention runs the plain
+    einsums on the card, so such a run is not mistaken for a kernel run."""
     if cfg.attn_backend != "auto":
         return cfg.attn_backend
-    if q.device.type == "cuda" and flash_supported(q):
-        return "flash"
+    if q.device.type == "cuda":
+        if flash_supported(q):
+            return "flash"
+        warnings.warn(
+            f"attn_backend='auto': the flash kernels do not take {q.dtype} "
+            f"head_dim {q.shape[-1]}; attention runs the plain einsums "
+            f"on the card", stacklevel=2)
     return "xla"
 
 

@@ -14,8 +14,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -42,47 +43,28 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{tag}.so"
 
 
-def _start(name: str) -> Tuple[Path, Optional[subprocess.Popen], Path]:
-    out = library_path(name)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    if out.exists():
-        return out, None, tmp
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return out, proc, tmp
-
-
-def _finish(name: str, out: Path, proc: Optional[subprocess.Popen],
-            tmp: Path) -> Tuple[Path, str]:
-    if proc is None:
-        return out, ""
-    log, _ = proc.communicate()
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {name}.cu ({proc.returncode}):"
-                           f"\n{log}")
-    os.replace(tmp, out)
-    return out, log
-
-
 def build(name: str) -> Tuple[Path, str]:
     """Compile ``csrc/<name>.cu`` unless a library for this exact source
     and flag set exists. Returns ``(library path, compiler output)``; the
     output is empty when the library was already built."""
-    return _finish(name, *_start(name))
+    out = library_path(name)
+    if out.exists():
+        return out, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    res = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {name}.cu ({res.returncode}):"
+                           f"\n{res.stdout}")
+    os.replace(tmp, out)
+    return out, res.stdout
 
 
 def build_all(names: Iterable[str]) -> Dict[str, Tuple[Path, str]]:
-    """:func:`build` for several sources, their ``nvcc`` runs started
-    together."""
-    started = {n: _start(n) for n in names}
-    results, errors = {}, []
-    for n, s in started.items():      # wait for every nvcc, then report
-        try:
-            results[n] = _finish(n, *s)
-        except RuntimeError as e:
-            errors.append(e)
-    if errors:
-        raise errors[0]
-    return results
+    """:func:`build` for several sources, one thread each, so their
+    ``nvcc`` runs go together; raises the first failure."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        return dict(zip(names, pool.map(build, names)))

@@ -10,6 +10,7 @@ reference's runs its Pallas kernels in the interpreter.
 """
 import dataclasses
 import inspect
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -237,6 +238,30 @@ def test_attention_backends(np_tree):
         b = tgpt.forward(params, toks, flash)
     assert fa.launches == before
     np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,hd,want", [
+    (torch.bfloat16, 64, "flash"), (torch.float16, 64, "xla"),
+    (torch.bfloat16, 80, "xla")])
+def test_auto_backend_on_cuda_tensors(dtype, hd, want):
+    """``auto`` on a CUDA tensor resolves to ``flash`` where the kernels
+    take its dtype and head_dim, else to ``xla`` with a warning. A
+    stand-in carries the device, dtype and shape: no card here."""
+    class CudaLike:
+        device = torch.device("cuda")
+        shape = (1, 8, 2, hd)
+
+        def __init__(self):
+            self.dtype = dtype
+
+        def dim(self):
+            return 4
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        got = tgpt._resolve_attn_backend(tgpt.CONFIGS["nano"], CudaLike())
+    assert got == want
+    assert bool(caught) == (want == "xla")
 
 
 def test_config_guards():
