@@ -22,7 +22,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ragged S=1000, non-causal S=256 / Sk=512, and bf16 and f32 at
    head_dim 32 and 128; timed at the training path's shape beside the
    plain versions, SDPA forward and backward (a yardstick timed here
-   only; the port never calls it) and the bound;
+   only; the port never calls it) and the bound, with each kernel's
+   achieved TFLOP/s;
 4. a small serving reference: the nano model at f32 served on the card
    through K1 gives the same greedy tokens as on the CPU;
 5. the engine at full GPT-2-small width (``CONFIGS["small"]``, bf16,
@@ -250,7 +251,9 @@ NANO_TRAIN_TOL = 1e-5          # f32: card + kernels vs CPU + plain
 
 def build_phase():
     """Build every kernel source (one nvcc each, started together),
-    timed, with ptxas' per-kernel registers and spills."""
+    timed, with ptxas' per-kernel registers, spills and performance
+    notes (wgmma serialisation). A bf16 flash kernel at head_dim 64 (the
+    training path's) that spills is fatal."""
     from ray_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -268,6 +271,12 @@ def build_phase():
                 fn = m.group(1)[:36] if m else line.split("'")[1]
             elif "registers" in line or "spill" in line:
                 log(f"  ptxas {fn}: {line.split(':', 1)[-1].strip()}")
+                spills = re.search(r"(\d+) bytes spill stores", line)
+                if re.match(r"flash_\w+_bf16ILi64E", fn) and spills \
+                        and int(spills.group(1)):
+                    raise AssertionError(f"{fn} spills at head_dim 64")
+            elif "Performance Loss" in line:
+                log(f"  ptxas note: {line.split(':', 1)[-1].strip()}")
 
 
 def _rel_err(a, b) -> float:
@@ -399,10 +408,11 @@ def flash_kernel_phase(card: str) -> list:
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "library_ms": lib_fwd if fwd else lib_bwd}
         log(f"{name} timing [{card}] (B={B} H={H} S={S} hd={hd} bf16 "
-            f"causal): kernel_ms={rec['ms']:.6g} plain_ms="
-            f"{rec['plain_ms']:.6g} library_ms={rec['library_ms']:.6g} "
-            f"bound_ms={rec['bound_ms']:.6g} ({rec['bound_by']}: {nbytes} "
-            f"B, {flops} flop) roofline_share="
+            f"causal): kernel_ms={rec['ms']:.6g} "
+            f"({flops / rec['ms'] / 1e9:.1f} TFLOP/s over {pairs} visible "
+            f"pairs) plain_ms={rec['plain_ms']:.6g} library_ms="
+            f"{rec['library_ms']:.6g} bound_ms={rec['bound_ms']:.6g} "
+            f"({rec['bound_by']}: {nbytes} B, {flops} flop) roofline_share="
             f"{rec['bound_ms'] / rec['ms']:.3f}")
         records.append(rec)
     log(f"flash backward [{card}]: K3a + K3b = "
@@ -502,6 +512,13 @@ def train_phase(card: str) -> dict:
             f"{1 - busy_ms / (wall * 1e3):.3f}")
         for us, key, count in sorted(rows, reverse=True)[:10]:
             log(f"  {us / 1e3:10.3f} ms  {count:6d} x  {key[:90]}")
+        flash = []
+        for us, key, count in sorted(rows):
+            m = re.search(r"flash_(fwd|bwd_dkdv|bwd_dq)_bf16", key)
+            if m:
+                flash.append((us, f"{m.group(0)} {us / 1e3:.3f} ms x {count}"))
+        log(f"train profile: K2/K3 {sum(us for us, _ in flash) / 1e3:.3f} "
+            f"ms of the step: " + "; ".join(text for _, text in flash))
     del state
     torch.cuda.empty_cache()
     return counts

@@ -2,21 +2,24 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled at first
 use, by ``nvcc`` for ``sm_90a``, into
-``build/kernels/<name>-<hash of source and flags>.so`` at the checkout
-root (git-ignored), then loaded with ``ctypes`` by its wrapper module. A
-library for the exact source and flags is reused; a fresh checkout builds
-everything anew. :func:`build_all` starts one ``nvcc`` per source at once,
+``build/kernels/<name>-<hash>.so`` at the checkout root (git-ignored),
+then loaded with ``ctypes`` by its wrapper module. The hash covers the
+source, every ``csrc/`` header it includes (``#include "..."``, followed
+through headers), and the flags, so a library is reused only for exactly
+the code and flags it was built from; a fresh checkout builds everything
+anew. :func:`build_all` starts one ``nvcc`` per source at once,
 so a caller that needs every kernel waits for the slowest build only.
 """
 from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, List, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -35,12 +38,34 @@ def _nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and the ``csrc/`` headers it includes, directly
+    or through other headers, in the order they are first met."""
+    found: List[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = (path.parent / inc.decode()).resolve()
+            if dep.is_file() and CSRC in dep.parents:
+                todo.append(dep)
+    return found
+
+
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to under the current flags."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
-                         ).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{tag}.so"
+    """Where ``csrc/<name>.cu`` builds to under the current sources and
+    flags."""
+    h = hashlib.sha256()
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Tuple[Path, str]:

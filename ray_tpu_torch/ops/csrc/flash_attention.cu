@@ -14,30 +14,52 @@
 //   - backward: p = exp(s - lse) in f32; dV += dtype(p)^T . dO;
 //     dP = dO . V^T in f32; dS = dtype(p * (dP - delta)); dK += dS^T . qs
 //     and dQ += dS . K in f32; dq = dtype(dQ * sm_scale).
+// The bf16 kernels take exp(x) as exp2(x * log2(e)) (one FMA folding the
+// factor in, one ex2.approx); l sums the unrounded f32 p.
 //
 // Layout: q, k, v, o, dO, dq, dk, dv are read and written in the public
 // [B, S, H, hd] layout (contiguous), so no transposed copies are made
-// around the kernels; a (batch, head) row is hd contiguous elements,
-// H * hd elements apart from the next position. lse and delta are f32
-// [B, H, S].
+// around the kernels. lse and delta are f32 [B, H, S].
 //
 // The TPU backward carried dQ in VMEM across the sequential k-block sweep
 // of one core ("not portable flash"). Hopper blocks run in no order, so the
-// backward is two kernels: K3a walks q tiles for its k tile and writes dK,
-// dV; K3b walks k tiles for its q tile and writes dQ. Both recompute p from
-// lse; there are no atomics, so every gradient is deterministic.
+// backward is two kernels: K3a walks q tiles for its key tile and writes
+// dK, dV; K3b walks key tiles for its q tile and writes dQ. Both recompute
+// p from lse; there are no atomics, so every gradient is deterministic.
 //
-// What bounds them: at GPT-2 shapes (hd 64, S 1024) the matrix products
-// (4 hd flops per visible (q, k) pair forward, 8 hd and 6 hd in K3a and
-// K3b) put the forward near the bytes/operations ridge and the backward
-// kernels on the operations side. The bf16 kernels run every product on
-// the tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate), keep the
-// softmax statistics and accumulators in registers, and stage K/V (or
-// Q/dO) tiles through shared memory, never materialising s or p in device
-// memory. Tiles past the causal diagonal are skipped, never visited; a
-// ragged tail (S or Sk not a multiple of the tile) is zero-filled and
-// masked. Not yet done (later work): wgmma/TMA, cp.async double
-// buffering, ldmatrix fragment loads.
+// What bounds them: at the training shape (hd 64, S 1024, causal) the
+// matrix products (4 hd flops per visible (q, k) pair forward, 8 hd in
+// K3a, 6 hd in K3b) put K2 near the bytes/operations ridge and K3a/K3b on
+// the operations side, and the forward's one exponential per pair costs
+// the SFU about as long as the products cost the tensor cores. On Hopper
+// the tensor cores' rate needs wgmma fed from shared memory by loads that
+// overlap it; as built, each kernel reaches a quarter to a fifth of that
+// rate, held by the dependent chain inside a warpgroup (product, then
+// softmax or dS, then the next product), which only the block's other
+// warpgroup overlaps (PERF.md has the measurements). The bf16 kernels
+// are built as
+//   - one block of two consumer warpgroups (64 rows, or 64 keys, each)
+//     and a producer warpgroup whose first warp issues the loads; the
+//     producer hands registers to the consumers (setmaxnreg, 24 / 240);
+//   - the producer's TMA loads (one 4-D tensor map per operand over
+//     {hd, H, S, B}, 128-byte swizzle, 64-byte at hd 32; boxes running
+//     past S or Sk arrive zero-filled) into a ring of two shared-memory
+//     stages guarded by full/empty mbarriers, so tile j + 1 is in flight
+//     while tile j is multiplied; the tile each block keeps (K2's Q, K3b's
+//     Q and dO, K3a's K and V) is loaded once;
+//   - every product as wgmma m64nNk16 (bf16 in, f32 accumulate). Products
+//     whose reduction is hd read both operands K-major from shared memory;
+//     products whose reduction runs over positions take A from registers
+//     (the previous product's accumulator rounded to bf16) and B from the
+//     same swizzled tile read MN-major, so no transposed tile is built;
+//   - the softmax statistics and all accumulators in registers; s and p
+//     never reach device memory.
+// Under causal masking, tiles past the diagonal are never loaded, in the
+// backward a warpgroup skips a loaded tile that lies wholly past its own
+// rows or keys, and only tiles that straddle the diagonal (or the Sk
+// tail) pay for the mask.
+// K2 and K3b launch their q tiles from the last (heaviest) one down; K3a's
+// lowest key tiles are its heaviest and come first already.
 //
 // The f32 kernels are plain FMA loops over shared-memory tiles (no tensor
 // core path keeps f32 exact).
@@ -50,12 +72,18 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
+using hopper::kmajor;
+using hopper::mnmajor;
+using hopper::Tile;
 
 constexpr float kNegInf = -1e30f;  // the reference's NEG_INF
-constexpr int kThreads = 128;      // 4 warps per block, every kernel
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kThreads = 128;      // 4 warps per block, the f32 kernels
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
@@ -80,10 +108,15 @@ __device__ __forceinline__ bool masked(int row, int col, int Sk, int causal) {
   return col >= Sk || (causal && col > row);
 }
 
-// ------------------------------------------------------------ bf16 tiles
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+// ------------------------------------------------------------ bf16 kernels
+// Every bf16 kernel: warps 0-7 are two consumer warpgroups, warps 8-11
+// the producer warpgroup, of which warp 8 issues the loads. A block holds
+// the whole register file (384 threads x 168 at launch); the producer
+// drops to 24 registers a thread and the consumers rise to 240.
+constexpr int kWsThreads = 384;
+constexpr int kProducer = 8;
+constexpr int kConsumerWarps = 8;
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
 
 // Two f32 values as one bf16 pair, the lower index in the low half.
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
@@ -91,149 +124,178 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// c += a . b for one m16n8k16 tile (bf16 in, f32 accumulate). Fragment
-// layout (PTX ISA, mma.m16n8k16): with g = lane / 4 and t = lane % 4,
-// a[0] = A[g][2t..], a[1] = A[g+8][2t..], a[2] = A[g][2t+8..],
-// a[3] = A[g+8][2t+8..]; b0 = B[2t..][g], b1 = B[2t+8..][g];
-// c[0..1] = C[g][2t..], c[2..3] = C[g+8][2t..].
-__device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A fragment of rows r0..r0+15, columns c0..c0+15 of a row-major tile.
-__device__ __forceinline__ void load_a(uint32_t* a, const bf16* t, int stride,
-                                       int r0, int c0, int g, int q4) {
-  a[0] = ld32(t + (r0 + g) * stride + c0 + 2 * q4);
-  a[1] = ld32(t + (r0 + g + 8) * stride + c0 + 2 * q4);
-  a[2] = ld32(t + (r0 + g) * stride + c0 + 8 + 2 * q4);
-  a[3] = ld32(t + (r0 + g + 8) * stride + c0 + 8 + 2 * q4);
-}
-
-// A fragment for k-step kk from two C tiles (n-tiles 2kk, 2kk+1) held in
-// registers: the accumulator of one product is the A operand of the next,
-// rounded to bf16.
-__device__ __forceinline__ void c_to_a(uint32_t* a, const float* c0,
-                                       const float* c1) {
-  a[0] = pack(c0[0], c0[1]);
-  a[1] = pack(c0[2], c0[3]);
-  a[2] = pack(c1[0], c1[1]);
-  a[3] = pack(c1[2], c1[3]);
-}
-
-// Rows row0..row0+ROWS-1 (those < n_valid valid, the rest zero) of a
-// [*, H, HD] tensor at `base` (position 0 of one (batch, head)) into a
-// row-major shared tile with row stride HD + 8 and, when `t` is given, a
-// transposed tile t[d][r] with row stride ROWS + 8.
-template <int HD, int ROWS>
-__device__ __forceinline__ void load_tile(bf16* s, bf16* t, const bf16* base,
-                                          int row0, int n_valid,
-                                          size_t row_stride) {
-  constexpr int kVec = HD / 8;  // 16-byte vectors per row
-  for (int i = threadIdx.x; i < ROWS * kVec; i += kThreads) {
-    const int r = i / kVec, c = (i % kVec) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r < n_valid)
-      val = *reinterpret_cast<const uint4*>(
-          base + static_cast<size_t>(row0 + r) * row_stride + c);
-    if (s != nullptr) *reinterpret_cast<uint4*>(s + r * (HD + 8) + c) = val;
-    if (t != nullptr) {
-      const bf16* e = reinterpret_cast<const bf16*>(&val);
+// The register-A fragments of a product whose reduction runs over the
+// N columns of accumulator c, rounded to bf16: n8 groups 2kk and 2kk + 1
+// of c are k-step kk of A.
+template <int N>
+__device__ __forceinline__ void to_a(uint32_t (&a)[N / 16][4],
+                                     const float (&c)[N / 2]) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) t[(c + j) * (ROWS + 8) + r] = e[j];
-    }
+  for (int kk = 0; kk < N / 16; ++kk) {
+    a[kk][0] = pack(c[8 * kk + 0], c[8 * kk + 1]);
+    a[kk][1] = pack(c[8 * kk + 2], c[8 * kk + 3]);
+    a[kk][2] = pack(c[8 * kk + 4], c[8 * kk + 5]);
+    a[kk][3] = pack(c[8 * kk + 6], c[8 * kk + 7]);
+  }
+}
+
+template <int R>
+__device__ __forceinline__ void zero(float (&r)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) r[i] = 0.f;
+}
+
+// The first 1024-byte boundary of dynamic shared memory (the swizzle
+// patterns repeat every 1024 bytes; tiles start on one). Launches ask
+// for 1024 bytes more than the tiles need.
+__device__ __forceinline__ uint32_t tile_base(const void* raw) {
+  return (hopper::smem_addr(raw) + 1023u) & ~1023u;
+}
+
+// Stores one accumulator (rows row0 and row0 + 8 of this thread, columns
+// 8d + 2t, + 1) as bf16 pairs times `scale`, rows past `limit` skipped.
+template <int HD>
+__device__ __forceinline__ void store_rows(bf16* base, size_t rs,
+                                           const float (&c)[HD / 2], int row0,
+                                           int limit, int t, float scale) {
+  const int row1 = row0 + 8;
+#pragma unroll
+  for (int d = 0; d < HD / 8; ++d) {
+    const int col = d * 8 + 2 * t;
+    if (row0 < limit)
+      *reinterpret_cast<uint32_t*>(base + row0 * rs + col) =
+          pack(c[4 * d] * scale, c[4 * d + 1] * scale);
+    if (row1 < limit)
+      *reinterpret_cast<uint32_t*>(base + row1 * rs + col) =
+          pack(c[4 * d + 2] * scale, c[4 * d + 3] * scale);
   }
 }
 
 // ------------------------------------------------------ K2 forward, bf16
-// One block per (q tile of 64 rows, head, batch); warp w owns rows
-// 16w..16w+15 of the tile. Key tiles of 64 are staged as K (row-major)
-// and V^T in shared memory.
+// One block per (q tile of 128 rows, head, batch). Warpgroup w owns rows
+// 64w..64w+63 of the tile; the producer streams key tiles of 128 (K and V
+// on separate barriers, so S = Q K^T starts before V lands).
+struct FwdTiles {
+  static constexpr int BQ = 128, BK = 128, NS = 2;
+  template <int HD>
+  static constexpr size_t smem() {
+    return 1024 + static_cast<size_t>(BQ + 2 * NS * BK) * HD * 2 +
+           8 * (1 + 3 * NS);
+  }
+};
+
 template <int HD>
-__global__ void __launch_bounds__(kThreads) flash_fwd_bf16(
-    bf16* __restrict__ o, float* __restrict__ lse, const bf16* __restrict__ q,
-    const bf16* __restrict__ k, const bf16* __restrict__ v, int H, int S,
-    int Sk, int causal) {
-  constexpr int BQ = 64, BK = 64, STR = HD + 8, TSTR = BK + 8;
+__global__ void __launch_bounds__(kWsThreads, 1) flash_fwd_bf16(
+    const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+    float* __restrict__ lse, int H, int S, int Sk, int causal) {
+  using T = Tile<HD>;
+  constexpr int BQ = FwdTiles::BQ, BK = FwdTiles::BK, NS = FwdTiles::NS;
+  // Every key tile a q tile loads is seen by both warpgroups' rows.
+  static_assert(BQ == BK, "the last key tile of a causal q tile is its own");
+  constexpr uint32_t QB = BQ * HD * 2, KB = BK * HD * 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [BQ][STR]
-  bf16* sK = sQ + BQ * STR;                      // [BK][STR]
-  bf16* sVt = sK + BK * STR;                     // [HD][TSTR]
+  const uint32_t sQ = tile_base(smem_raw);
+  const uint32_t sK = sQ + QB, sV = sK + NS * KB;  // stage s at + s * KB
+  const uint32_t bars = sV + NS * KB;
+  const uint32_t barQ = bars;
+  auto fullK = [&](int s) { return bars + 8 * (1 + s); };
+  auto fullV = [&](int s) { return bars + 8 * (1 + NS + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + 2 * NS + s); };
 
-  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, q4 = lane & 3, wr = warp * 16;
-  const size_t rs = static_cast<size_t>(H) * HD;
-  const bf16* qb = q + (static_cast<size_t>(b) * S * H + h) * HD;
-  const bf16* kb = k + (static_cast<size_t>(b) * Sk * H + h) * HD;
-  const bf16* vb = v + (static_cast<size_t>(b) * Sk * H + h) * HD;
-
-  load_tile<HD, BQ>(sQ, nullptr, qb, q0, min(BQ, S - q0), rs);
-
-  const int row0 = q0 + wr + g, row1 = row0 + 8;
-  float acc[HD / 8][4];
-#pragma unroll
-  for (int d = 0; d < HD / 8; ++d)
-    acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
-
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qt * BQ;
   // Causal: rows of this tile see no key at or past q0 + BQ.
   const int kv_end = causal ? min(Sk, q0 + BQ) : Sk;
-  for (int k0 = 0; k0 < kv_end; k0 += BK) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<HD, BK>(sK, nullptr, kb, k0, min(BK, Sk - k0), rs);
-    load_tile<HD, BK>(nullptr, sVt, vb, k0, min(BK, Sk - k0), rs);
-    __syncthreads();
+  const int n = (kv_end + BK - 1) / BK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-    float s[BK / 8][4];
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t a[4];
-      load_a(a, sQ, STR, wr, kk * 16, g, q4);
-#pragma unroll
-      for (int n = 0; n < BK / 8; ++n) {
-        const bf16* kr = sK + (n * 8 + g) * STR + kk * 16 + 2 * q4;
-        mma(s[n], a, ld32(kr), ld32(kr + 8));
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(barQ, 1);
+    for (int s = 0; s < NS; ++s) {
+      hopper::mbar_init(fullK(s), 1);
+      hopper::mbar_init(fullV(s), 1);
+      hopper::mbar_init(empty(s), kConsumerWarps);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= kProducer) {
+    hopper::reg_release<kProducerRegs>();
+    if (warp != kProducer) return;
+    if (lane == 0) {
+      hopper::mbar_expect_tx(barQ, QB);
+      T::template load<BQ>(sQ, &tq, barQ, h, q0, b);
+      for (int j = 0; j < n; ++j) {
+        const int s = j % NS;
+        if (j >= NS) hopper::mbar_wait(empty(s), ((j / NS) + 1) & 1);
+        hopper::mbar_expect_tx(fullK(s), KB);
+        T::template load<BK>(sK + s * KB, &tk, fullK(s), h, j * BK, b);
+        hopper::mbar_expect_tx(fullV(s), KB);
+        T::template load<BK>(sV + s * KB, &tv, fullV(s), h, j * BK, b);
       }
     }
-    // Only tiles that straddle the diagonal or the key tail pay for the
-    // mask.
-    if ((causal && k0 + BK - 1 > q0 + wr) || k0 + BK > Sk) {
+    return;
+  }
+  hopper::reg_claim<kConsumerRegs>();
+
+  const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int rw = q0 + 64 * wg + 16 * (warp & 3);  // this warp's first row
+  const int row0 = rw + g, row1 = row0 + 8;
+  const uint32_t sQw = sQ + 64 * wg * T::RB;
+  float acc[HD / 2];
+  zero(acc);
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+
+  hopper::mbar_wait(barQ, 0);
+  for (int j = 0; j < n; ++j) {
+    const int s = j % NS, k0 = j * BK;
+    const uint32_t ph = (j / NS) & 1;
+    hopper::mbar_wait(fullK(s), ph);
+    float sc[BK / 2];
+    hopper::wgmma_fence();
 #pragma unroll
-      for (int n = 0; n < BK / 8; ++n)
+    for (int kk = 0; kk < HD / 16; ++kk)
+      hopper::wgmma_ss<BK>(sc, kmajor<HD, BQ>(sQw, kk),
+                           kmajor<HD, BK>(sK + s * KB, kk), kk);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::pin(sc);
+    if ((causal && k0 + BK - 1 > rw) || k0 + BK > Sk) {
+#pragma unroll
+      for (int c = 0; c < BK / 8; ++c)
 #pragma unroll
         for (int i = 0; i < 4; ++i)
-          if (masked(i < 2 ? row0 : row1, k0 + n * 8 + 2 * q4 + (i & 1), Sk,
-                     causal))
-            s[n][i] = kNegInf;
+          if (masked(i < 2 ? row0 : row1, k0 + 8 * c + 2 * t + (i & 1),
+                     Sk, causal))
+            sc[4 * c + i] = kNegInf;
     }
     float mx0 = m0, mx1 = m1;
 #pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+    for (int c = 0; c < BK / 8; ++c) {
+      mx0 = fmaxf(mx0, fmaxf(sc[4 * c], sc[4 * c + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[4 * c + 2], sc[4 * c + 3]));
     }
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
       mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
     }
-    const float al0 = expf(m0 - mx0), al1 = expf(m1 - mx1);
+    const float b0 = mx0 * kLog2e, b1 = mx1 * kLog2e;
+    const float al0 = hopper::ex2(fmaf(m0, kLog2e, -b0));
+    const float al1 = hopper::ex2(fmaf(m1, kLog2e, -b1));
     float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-      s[n][0] = expf(s[n][0] - mx0);
-      s[n][1] = expf(s[n][1] - mx0);
-      s[n][2] = expf(s[n][2] - mx1);
-      s[n][3] = expf(s[n][3] - mx1);
-      sum0 += s[n][0] + s[n][1];
-      sum1 += s[n][2] + s[n][3];
+    for (int c = 0; c < BK / 8; ++c) {
+      sc[4 * c] = hopper::ex2(fmaf(sc[4 * c], kLog2e, -b0));
+      sc[4 * c + 1] = hopper::ex2(fmaf(sc[4 * c + 1], kLog2e, -b0));
+      sc[4 * c + 2] = hopper::ex2(fmaf(sc[4 * c + 2], kLog2e, -b1));
+      sc[4 * c + 3] = hopper::ex2(fmaf(sc[4 * c + 3], kLog2e, -b1));
+      sum0 += sc[4 * c] + sc[4 * c + 1];
+      sum1 += sc[4 * c + 2] + sc[4 * c + 3];
     }
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
@@ -246,283 +308,350 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(
     m1 = mx1;
 #pragma unroll
     for (int d = 0; d < HD / 8; ++d) {
-      acc[d][0] *= al0;
-      acc[d][1] *= al0;
-      acc[d][2] *= al1;
-      acc[d][3] *= al1;
+      acc[4 * d] *= al0;
+      acc[4 * d + 1] *= al0;
+      acc[4 * d + 2] *= al1;
+      acc[4 * d + 3] *= al1;
     }
     // acc += bf16(p) . V
+    uint32_t pa[BK / 16][4];
+    to_a<BK>(pa, sc);
+    hopper::mbar_wait(fullV(s), ph);
+    hopper::pin(acc);
+    hopper::pin(pa);
+    hopper::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[4];
-      c_to_a(a, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int d = 0; d < HD / 8; ++d) {
-        const bf16* vr = sVt + (d * 8 + g) * TSTR + kk * 16 + 2 * q4;
-        mma(acc[d], a, ld32(vr), ld32(vr + 8));
-      }
-    }
+    for (int kk = 0; kk < BK / 16; ++kk)
+      hopper::wgmma_rs<HD>(acc, pa[kk], mnmajor<HD, BK>(sV + s * KB, kk));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::pin(acc);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(empty(s));
   }
 
-  bf16* ob = o + (static_cast<size_t>(b) * S * H + h) * HD;
-  float* lb = lse + (static_cast<size_t>(b) * H + h) * S;
 #pragma unroll
   for (int d = 0; d < HD / 8; ++d) {
-    const int c = d * 8 + 2 * q4;
-    if (row0 < S)
-      *reinterpret_cast<uint32_t*>(ob + row0 * rs + c) =
-          pack(acc[d][0] / l0, acc[d][1] / l0);
-    if (row1 < S)
-      *reinterpret_cast<uint32_t*>(ob + row1 * rs + c) =
-          pack(acc[d][2] / l1, acc[d][3] / l1);
+    acc[4 * d] /= l0;
+    acc[4 * d + 1] /= l0;
+    acc[4 * d + 2] /= l1;
+    acc[4 * d + 3] /= l1;
   }
-  if (q4 == 0) {
+  const size_t rs = static_cast<size_t>(H) * HD;
+  store_rows<HD>(o + (static_cast<size_t>(b) * S * H + h) * HD, rs, acc,
+                 row0, S, t, 1.f);
+  float* lb = lse + (static_cast<size_t>(b) * H + h) * S;
+  if (t == 0) {
     if (row0 < S) lb[row0] = m0 + logf(l0);
     if (row1 < S) lb[row1] = m1 + logf(l1);
   }
 }
 
 // ----------------------------------------------- K3a backward dK dV, bf16
-// One block per (k tile of 64 keys, head, batch); warp w owns keys
-// 16w..16w+15 and works on transposed products (keys are the M side):
-// S^T = K Q^T, dP^T = V dO^T. It walks q tiles of BQ rows from the
-// diagonal on. Padding q rows get lse = +inf and delta = 0, so their p
-// and dS are exactly 0.
-template <int HD, int BQ>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_bf16(
-    bf16* __restrict__ dk, bf16* __restrict__ dv, const bf16* __restrict__ q,
-    const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ dO, const float* __restrict__ lse,
+// One block per (key tile of 128, head, batch); warpgroup w owns keys
+// 64w..64w+63 and works on transposed products (keys are the M side):
+// S^T = K Q^T and dP^T = V dO^T read both operands K-major, dV += P^T dO
+// and dK += dS^T Q take A from registers and B (dO, Q) MN-major. The
+// producer streams q tiles of BQ rows, from the diagonal on, with their
+// lse (times log2 e) and delta rows; rows past S get lse = +inf and
+// delta = 0, so their p and dS are exactly 0.
+template <int HD>
+struct DkdvTiles {
+  static constexpr int BKc = 128, BQ = HD == 128 ? 32 : 64, NS = 2;
+  static constexpr size_t smem() {
+    return 1024 + static_cast<size_t>(2 * BKc + 2 * NS * BQ) * HD * 2 +
+           NS * 2 * BQ * sizeof(float) + 8 * (1 + 2 * NS);
+  }
+};
+
+template <int HD>
+__global__ void __launch_bounds__(kWsThreads, 1) flash_bwd_dkdv_bf16(
+    const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tdo, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, const float* __restrict__ lse,
     const float* __restrict__ delta, int H, int S, int Sk, int causal) {
-  constexpr int BKc = 64, STR = HD + 8, QT = BQ + 8;
+  using T = Tile<HD>;
+  using C = DkdvTiles<HD>;
+  constexpr int BKc = C::BKc, BQ = C::BQ, NS = C::NS;
+  constexpr uint32_t KB = BKc * HD * 2, QB = BQ * HD * 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);  // [BKc][STR]
-  bf16* sV = sK + BKc * STR;                     // [BKc][STR]
-  bf16* sQ = sV + BKc * STR;                     // [BQ][STR]
-  bf16* sQt = sQ + BQ * STR;                     // [HD][QT]
-  bf16* sdO = sQt + HD * QT;                     // [BQ][STR]
-  bf16* sdOt = sdO + BQ * STR;                   // [HD][QT]
-  float* sL = reinterpret_cast<float*>(sdOt + HD * QT);  // [BQ]
-  float* sD = sL + BQ;                                   // [BQ]
+  const uint32_t sK = tile_base(smem_raw), sV = sK + KB;
+  const uint32_t sQ = sV + KB, sdO = sQ + NS * QB;  // stage s at + s * QB
+  const uint32_t stats = sdO + NS * QB;  // stage s: lse [BQ], delta [BQ]
+  const uint32_t bars = stats + NS * 2 * BQ * sizeof(float);
+  float* const sstat = reinterpret_cast<float*>(
+      smem_raw + (stats - hopper::smem_addr(smem_raw)));
+  const uint32_t barKV = bars;
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + NS + s); };
 
   const int h = blockIdx.y, b = blockIdx.z, c0 = blockIdx.x * BKc;
+  // Causal: q rows before c0 see none of these keys.
+  const int first = causal ? (c0 / BQ) * BQ : 0;
+  const int n = first < S ? (S - first + BQ - 1) / BQ : 0;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, q4 = lane & 3, kr = warp * 16;
-  const size_t rs = static_cast<size_t>(H) * HD;
-  const size_t qoff = (static_cast<size_t>(b) * S * H + h) * HD;
-  const size_t koff = (static_cast<size_t>(b) * Sk * H + h) * HD;
   const float* lb = lse + (static_cast<size_t>(b) * H + h) * S;
   const float* db = delta + (static_cast<size_t>(b) * H + h) * S;
 
-  load_tile<HD, BKc>(sK, nullptr, k + koff, c0, min(BKc, Sk - c0), rs);
-  load_tile<HD, BKc>(sV, nullptr, v + koff, c0, min(BKc, Sk - c0), rs);
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(barKV, 1);
+    for (int s = 0; s < NS; ++s) {
+      hopper::mbar_init(full(s), 32);  // every producer lane arrives
+      hopper::mbar_init(empty(s), kConsumerWarps);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
 
-  const int key0 = c0 + kr + g, key1 = key0 + 8;
-  float dka[HD / 8][4], dva[HD / 8][4];
-#pragma unroll
-  for (int d = 0; d < HD / 8; ++d)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dka[d][i] = dva[d][i] = 0.f;
+  if (warp >= kProducer) {
+    hopper::reg_release<kProducerRegs>();
+    if (warp != kProducer) return;
+    if (lane == 0) {
+      hopper::mbar_expect_tx(barKV, 2 * KB);
+      T::template load<BKc>(sK, &tk, barKV, h, c0, b);
+      T::template load<BKc>(sV, &tv, barKV, h, c0, b);
+    }
+    for (int j = 0; j < n; ++j) {
+      const int s = j % NS, q0 = first + j * BQ;
+      if (j >= NS) hopper::mbar_wait(empty(s), ((j / NS) + 1) & 1);
+      if (lane == 0) {  // the tiles first, then the rows' statistics
+        hopper::mbar_expect(full(s), 2 * QB);
+        T::template load<BQ>(sQ + s * QB, &tq, full(s), h, q0, b);
+        T::template load<BQ>(sdO + s * QB, &tdo, full(s), h, q0, b);
+      }
+      float* sl = sstat + s * 2 * BQ;
+      for (int i = lane; i < BQ; i += 32) {
+        const bool in = q0 + i < S;
+        sl[i] = in ? lb[q0 + i] * kLog2e : INFINITY;
+        sl[BQ + i] = in ? db[q0 + i] : 0.f;
+      }
+      hopper::mbar_arrive(full(s));
+    }
+    return;
+  }
+  hopper::reg_claim<kConsumerRegs>();
 
-  // Causal: q rows before c0 see none of these keys.
-  const int first = causal ? (c0 / BQ) * BQ : 0;
-  for (int q0 = first; q0 < S; q0 += BQ) {
-    __syncthreads();
-    const int nv = min(BQ, S - q0);
-    load_tile<HD, BQ>(sQ, sQt, q + qoff, q0, nv, rs);
-    load_tile<HD, BQ>(sdO, sdOt, dO + qoff, q0, nv, rs);
-    for (int i = threadIdx.x; i < BQ; i += kThreads) {
-      sL[i] = i < nv ? lb[q0 + i] : INFINITY;
-      sD[i] = i < nv ? db[q0 + i] : 0.f;
-    }
-    __syncthreads();
+  const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int ck = c0 + 64 * wg;            // this warpgroup's first key
+  const int kw = ck + 16 * (warp & 3);    // this warp's first key
+  const int key0 = kw + g, key1 = key0 + 8;
+  const uint32_t sKw = sK + 64 * wg * T::RB, sVw = sV + 64 * wg * T::RB;
+  float dka[HD / 2], dva[HD / 2];
+  zero(dka);
+  zero(dva);
 
-    // P^T = exp(K Q^T - lse), masked entries exactly 0.
-    float st[BQ / 8][4];
+  hopper::mbar_wait(barKV, 0);
+  for (int j = 0; j < n; ++j) {
+    const int s = j % NS, q0 = first + j * BQ;
+    hopper::mbar_wait(full(s), (j / NS) & 1);
+    if (!causal || q0 + BQ - 1 >= ck) {
+      const uint32_t q = sQ + s * QB, dob = sdO + s * QB;
+      const float* sl = sstat + s * 2 * BQ;
+      float st[BQ / 2], dpt[BQ / 2];
+      hopper::wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < BQ / 8; ++n) st[n][0] = st[n][1] = st[n][2] = st[n][3] = 0.f;
+      for (int kk = 0; kk < HD / 16; ++kk)
+        hopper::wgmma_ss<BQ>(st, kmajor<HD, BKc>(sKw, kk),
+                             kmajor<HD, BQ>(q, kk), kk);
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t a[4];
-      load_a(a, sK, STR, kr, kk * 16, g, q4);
+      for (int kk = 0; kk < HD / 16; ++kk)
+        hopper::wgmma_ss<BQ>(dpt, kmajor<HD, BKc>(sVw, kk),
+                             kmajor<HD, BQ>(dob, kk), kk);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::pin(st);
+      hopper::pin(dpt);
+      // P^T = exp(S^T - lse), masked entries exactly 0.
+      const bool edge = (causal && kw + 15 > q0) || kw + 16 > Sk;
 #pragma unroll
-      for (int n = 0; n < BQ / 8; ++n) {
-        const bf16* qr = sQ + (n * 8 + g) * STR + kk * 16 + 2 * q4;
-        mma(st[n], a, ld32(qr), ld32(qr + 8));
-      }
+      for (int c = 0; c < BQ / 8; ++c)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int qi = 8 * c + 2 * t + (i & 1);
+          st[4 * c + i] =
+              edge && masked(q0 + qi, i < 2 ? key0 : key1, Sk, causal)
+                  ? 0.f
+                  : hopper::ex2(fmaf(st[4 * c + i], kLog2e, -sl[qi]));
+        }
+      // dV += bf16(P^T) . dO, in flight while dS^T is formed.
+      uint32_t pa[BQ / 16][4];
+      to_a<BQ>(pa, st);
+      hopper::pin(dva);
+      hopper::pin(pa);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        hopper::wgmma_rs<HD>(dva, pa[kk], mnmajor<HD, BQ>(dob, kk));
+      hopper::wgmma_commit();
+      // dS^T = P^T * (dP^T - delta), rounded to bf16 where it becomes A.
+#pragma unroll
+      for (int c = 0; c < BQ / 8; ++c)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          dpt[4 * c + i] = st[4 * c + i] *
+                           (dpt[4 * c + i] - sl[BQ + 8 * c + 2 * t + (i & 1)]);
+      // dK += dS^T . qs
+      uint32_t da[BQ / 16][4];
+      to_a<BQ>(da, dpt);
+      hopper::pin(dka);
+      hopper::pin(da);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        hopper::wgmma_rs<HD>(dka, da[kk], mnmajor<HD, BQ>(q, kk));
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::pin(dva);
+      hopper::pin(dka);
     }
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qi = n * 8 + 2 * q4 + (i & 1);
-        st[n][i] = masked(q0 + qi, i < 2 ? key0 : key1, Sk, causal)
-                       ? 0.f
-                       : expf(st[n][i] - sL[qi]);
-      }
-    // dV += bf16(P^T) . dO
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      uint32_t a[4];
-      c_to_a(a, st[2 * kk], st[2 * kk + 1]);
-#pragma unroll
-      for (int d = 0; d < HD / 8; ++d) {
-        const bf16* r = sdOt + (d * 8 + g) * QT + kk * 16 + 2 * q4;
-        mma(dva[d], a, ld32(r), ld32(r + 8));
-      }
-    }
-    // dP^T = V dO^T, then dS^T = P^T * (dP^T - delta) (rounded to bf16
-    // where it becomes the A operand).
-    float dpt[BQ / 8][4];
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n)
-      dpt[n][0] = dpt[n][1] = dpt[n][2] = dpt[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t a[4];
-      load_a(a, sV, STR, kr, kk * 16, g, q4);
-#pragma unroll
-      for (int n = 0; n < BQ / 8; ++n) {
-        const bf16* r = sdO + (n * 8 + g) * STR + kk * 16 + 2 * q4;
-        mma(dpt[n], a, ld32(r), ld32(r + 8));
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        dpt[n][i] = st[n][i] * (dpt[n][i] - sD[n * 8 + 2 * q4 + (i & 1)]);
-    // dK += dS^T . qs
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      uint32_t a[4];
-      c_to_a(a, dpt[2 * kk], dpt[2 * kk + 1]);
-#pragma unroll
-      for (int d = 0; d < HD / 8; ++d) {
-        const bf16* r = sQt + (d * 8 + g) * QT + kk * 16 + 2 * q4;
-        mma(dka[d], a, ld32(r), ld32(r + 8));
-      }
-    }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(empty(s));
   }
 
-  bf16* dkb = dk + koff;
-  bf16* dvb = dv + koff;
-#pragma unroll
-  for (int d = 0; d < HD / 8; ++d) {
-    const int c = d * 8 + 2 * q4;
-    if (key0 < Sk) {
-      *reinterpret_cast<uint32_t*>(dkb + key0 * rs + c) = pack(dka[d][0], dka[d][1]);
-      *reinterpret_cast<uint32_t*>(dvb + key0 * rs + c) = pack(dva[d][0], dva[d][1]);
-    }
-    if (key1 < Sk) {
-      *reinterpret_cast<uint32_t*>(dkb + key1 * rs + c) = pack(dka[d][2], dka[d][3]);
-      *reinterpret_cast<uint32_t*>(dvb + key1 * rs + c) = pack(dva[d][2], dva[d][3]);
-    }
-  }
+  const size_t rs = static_cast<size_t>(H) * HD;
+  const size_t koff = (static_cast<size_t>(b) * Sk * H + h) * HD;
+  store_rows<HD>(dk + koff, rs, dka, key0, Sk, t, 1.f);
+  store_rows<HD>(dv + koff, rs, dva, key0, Sk, t, 1.f);
 }
 
 // ------------------------------------------------- K3b backward dQ, bf16
-// One block per (q tile of 64 rows, head, batch); warp w owns rows
-// 16w..16w+15. It walks key tiles of BK up to the diagonal, staging K
-// (row-major and transposed) and V.
-template <int HD, int BK>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_bf16(
-    bf16* __restrict__ dq, const bf16* __restrict__ q,
-    const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ dO, const float* __restrict__ lse,
-    const float* __restrict__ delta, int H, int S, int Sk, int causal,
-    float sm_scale) {
-  constexpr int BQ = 64, STR = HD + 8, KT = BK + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [BQ][STR]
-  bf16* sdO = sQ + BQ * STR;                     // [BQ][STR]
-  bf16* sK = sdO + BQ * STR;                     // [BK][STR]
-  bf16* sKt = sK + BK * STR;                     // [HD][KT]
-  bf16* sV = sKt + HD * KT;                      // [BK][STR]
+// One block per (q tile of 128 rows, head, batch); warpgroup w owns rows
+// 64w..64w+63. The producer streams key tiles of 128 (64 at head_dim 128,
+// for registers) with K and V on one barrier, up to the diagonal. S = Q
+// K^T and dP = dO V^T read both operands K-major; dQ += dS K takes dS
+// from registers and K MN-major.
+template <int HD>
+struct DqTiles {
+  static constexpr int BQ = 128, BK = HD == 128 ? 64 : 128, NS = 2;
+  static constexpr size_t smem() {
+    return 1024 + static_cast<size_t>(2 * BQ + 2 * NS * BK) * HD * 2 +
+           8 * (1 + 2 * NS);
+  }
+};
 
-  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * BQ;
+template <int HD>
+__global__ void __launch_bounds__(kWsThreads, 1) flash_bwd_dq_bf16(
+    const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tdo, bf16* __restrict__ dq,
+    const float* __restrict__ lse, const float* __restrict__ delta, int H,
+    int S, int Sk, int causal, float sm_scale) {
+  using T = Tile<HD>;
+  using C = DqTiles<HD>;
+  constexpr int BQ = C::BQ, BK = C::BK, NS = C::NS;
+  constexpr uint32_t QB = BQ * HD * 2, KB = BK * HD * 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t sQ = tile_base(smem_raw), sdO = sQ + QB;
+  const uint32_t sK = sdO + QB, sV = sK + NS * KB;  // stage s at + s * KB
+  const uint32_t bars = sV + NS * KB;
+  const uint32_t barQ = bars;
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + NS + s); };
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qt * BQ;
+  const int kv_end = causal ? min(Sk, q0 + BQ) : Sk;
+  const int n = (kv_end + BK - 1) / BK;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, q4 = lane & 3, wr = warp * 16;
-  const size_t rs = static_cast<size_t>(H) * HD;
-  const size_t qoff = (static_cast<size_t>(b) * S * H + h) * HD;
-  const size_t koff = (static_cast<size_t>(b) * Sk * H + h) * HD;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(barQ, 1);
+    for (int s = 0; s < NS; ++s) {
+      hopper::mbar_init(full(s), 1);
+      hopper::mbar_init(empty(s), kConsumerWarps);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= kProducer) {
+    hopper::reg_release<kProducerRegs>();
+    if (warp != kProducer) return;
+    if (lane == 0) {
+      hopper::mbar_expect_tx(barQ, 2 * QB);
+      T::template load<BQ>(sQ, &tq, barQ, h, q0, b);
+      T::template load<BQ>(sdO, &tdo, barQ, h, q0, b);
+      for (int j = 0; j < n; ++j) {
+        const int s = j % NS;
+        if (j >= NS) hopper::mbar_wait(empty(s), ((j / NS) + 1) & 1);
+        hopper::mbar_expect_tx(full(s), 2 * KB);
+        T::template load<BK>(sK + s * KB, &tk, full(s), h, j * BK, b);
+        T::template load<BK>(sV + s * KB, &tv, full(s), h, j * BK, b);
+      }
+    }
+    return;
+  }
+  hopper::reg_claim<kConsumerRegs>();
+
+  const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + 64 * wg;
+  const int rw = r0 + 16 * (warp & 3);
+  const int row0 = rw + g, row1 = row0 + 8;
+  const uint32_t sQw = sQ + 64 * wg * T::RB, sdOw = sdO + 64 * wg * T::RB;
   const float* lb = lse + (static_cast<size_t>(b) * H + h) * S;
   const float* db = delta + (static_cast<size_t>(b) * H + h) * S;
-
-  const int nv = min(BQ, S - q0);
-  load_tile<HD, BQ>(sQ, nullptr, q + qoff, q0, nv, rs);
-  load_tile<HD, BQ>(sdO, nullptr, dO + qoff, q0, nv, rs);
-  const int row0 = q0 + wr + g, row1 = row0 + 8;
-  const float lse0 = row0 < S ? lb[row0] : INFINITY;
-  const float lse1 = row1 < S ? lb[row1] : INFINITY;
+  const float lse0 = row0 < S ? lb[row0] * kLog2e : INFINITY;
+  const float lse1 = row1 < S ? lb[row1] * kLog2e : INFINITY;
   const float dl0 = row0 < S ? db[row0] : 0.f;
   const float dl1 = row1 < S ? db[row1] : 0.f;
+  float dqa[HD / 2];
+  zero(dqa);
 
-  float dqa[HD / 8][4];
+  hopper::mbar_wait(barQ, 0);
+  for (int j = 0; j < n; ++j) {
+    const int s = j % NS, k0 = j * BK;
+    hopper::mbar_wait(full(s), (j / NS) & 1);
+    if (!causal || k0 <= r0 + 63) {
+      const uint32_t kt = sK + s * KB;
+      float sc[BK / 2], dp[BK / 2];
+      hopper::wgmma_fence();
 #pragma unroll
-  for (int d = 0; d < HD / 8; ++d)
-    dqa[d][0] = dqa[d][1] = dqa[d][2] = dqa[d][3] = 0.f;
-
-  const int kv_end = causal ? min(Sk, q0 + BQ) : Sk;
-  for (int k0 = 0; k0 < kv_end; k0 += BK) {
-    __syncthreads();
-    const int kv = min(BK, Sk - k0);
-    load_tile<HD, BK>(sK, sKt, k + koff, k0, kv, rs);
-    load_tile<HD, BK>(sV, nullptr, v + koff, k0, kv, rs);
-    __syncthreads();
-
-    float s[BK / 8][4], dp[BK / 8][4];
+      for (int kk = 0; kk < HD / 16; ++kk)
+        hopper::wgmma_ss<BK>(sc, kmajor<HD, BQ>(sQw, kk),
+                             kmajor<HD, BK>(kt, kk), kk);
 #pragma unroll
-    for (int n = 0; n < BK / 8; ++n)
+      for (int kk = 0; kk < HD / 16; ++kk)
+        hopper::wgmma_ss<BK>(dp, kmajor<HD, BQ>(sdOw, kk),
+                             kmajor<HD, BK>(sV + s * KB, kk), kk);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::pin(sc);
+      hopper::pin(dp);
+      const bool edge = (causal && k0 + BK - 1 > rw) || k0 + BK > Sk;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) s[n][i] = dp[n][i] = 0.f;
+      for (int c = 0; c < BK / 8; ++c)
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t a[4], ad[4];
-      load_a(a, sQ, STR, wr, kk * 16, g, q4);
-      load_a(ad, sdO, STR, wr, kk * 16, g, q4);
+        for (int i = 0; i < 4; ++i) {
+          const int row = i < 2 ? row0 : row1;
+          const float p =
+              edge && masked(row, k0 + 8 * c + 2 * t + (i & 1), Sk, causal)
+                  ? 0.f
+                  : hopper::ex2(fmaf(sc[4 * c + i], kLog2e, i < 2 ? -lse0 : -lse1));
+          sc[4 * c + i] = p * (dp[4 * c + i] - (i < 2 ? dl0 : dl1));  // dS
+        }
+      // dQ += bf16(dS) . K
+      uint32_t da[BK / 16][4];
+      to_a<BK>(da, sc);
+      hopper::pin(dqa);
+      hopper::pin(da);
+      hopper::wgmma_fence();
 #pragma unroll
-      for (int n = 0; n < BK / 8; ++n) {
-        const bf16* kr = sK + (n * 8 + g) * STR + kk * 16 + 2 * q4;
-        mma(s[n], a, ld32(kr), ld32(kr + 8));
-        const bf16* vr = sV + (n * 8 + g) * STR + kk * 16 + 2 * q4;
-        mma(dp[n], ad, ld32(vr), ld32(vr + 8));
-      }
+      for (int kk = 0; kk < BK / 16; ++kk)
+        hopper::wgmma_rs<HD>(dqa, da[kk], mnmajor<HD, BK>(kt, kk));
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::pin(dqa);
     }
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = i < 2 ? row0 : row1;
-        const float p = masked(row, k0 + n * 8 + 2 * q4 + (i & 1), Sk, causal)
-                            ? 0.f
-                            : expf(s[n][i] - (i < 2 ? lse0 : lse1));
-        s[n][i] = p * (dp[n][i] - (i < 2 ? dl0 : dl1));  // dS
-      }
-    // dQ += bf16(dS) . K
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[4];
-      c_to_a(a, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int d = 0; d < HD / 8; ++d) {
-        const bf16* r = sKt + (d * 8 + g) * KT + kk * 16 + 2 * q4;
-        mma(dqa[d], a, ld32(r), ld32(r + 8));
-      }
-    }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(empty(s));
   }
 
-  bf16* dqb = dq + qoff;
-#pragma unroll
-  for (int d = 0; d < HD / 8; ++d) {
-    const int c = d * 8 + 2 * q4;
-    if (row0 < S)
-      *reinterpret_cast<uint32_t*>(dqb + row0 * rs + c) =
-          pack(dqa[d][0] * sm_scale, dqa[d][1] * sm_scale);
-    if (row1 < S)
-      *reinterpret_cast<uint32_t*>(dqb + row1 * rs + c) =
-          pack(dqa[d][2] * sm_scale, dqa[d][3] * sm_scale);
-  }
+  store_rows<HD>(dq + (static_cast<size_t>(b) * S * H + h) * HD,
+                 static_cast<size_t>(H) * HD, dqa, row0, S, t, sm_scale);
 }
 
 // ------------------------------------------------------ FMA kernels (f32)
@@ -771,7 +900,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_fma(
 // ------------------------------------------------------------- launches
 // Kernels above 48 KB of dynamic shared memory need the opt-in attribute;
 // it is set on every launch (a cheap host call) so no static state is
-// shared between threads.
+// shared between threads. The bf16 kernels' tensor maps are built on the
+// host at each launch and passed by value.
 template <typename K>
 cudaError_t prepare(K kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel,
@@ -787,12 +917,17 @@ cudaError_t fwd(int dtype, void* o, void* lse, const void* q, const void* k,
                 cudaStream_t st) {
   cudaError_t err;
   if (dtype == 1) {
-    const size_t smem = sizeof(bf16) * (128 * (HD + 8) + HD * 72);
+    using C = FwdTiles;
+    CUtensorMap mq, mk, mv;
+    if (!hopper::bshd_map(&mq, q, B, S, H, HD, C::BQ) ||
+        !hopper::bshd_map(&mk, k, B, Sk, H, HD, C::BK) ||
+        !hopper::bshd_map(&mv, v, B, Sk, H, HD, C::BK))
+      return cudaErrorInvalidValue;
+    const size_t smem = C::smem<HD>();
     if ((err = prepare(flash_fwd_bf16<HD>, smem)) != cudaSuccess) return err;
-    flash_fwd_bf16<HD><<<dim3(cdiv(S, 64), H, B), kThreads, smem, st>>>(
-        static_cast<bf16*>(o), static_cast<float*>(lse),
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), H, S, Sk, causal);
+    flash_fwd_bf16<HD><<<dim3(cdiv(S, C::BQ), H, B), kWsThreads, smem, st>>>(
+        mq, mk, mv, static_cast<bf16*>(o), static_cast<float*>(lse), H, S,
+        Sk, causal);
   } else {
     const size_t smem = sizeof(float) * (80 * (HD + 1) + 16 * 32 + 48);
     if ((err = prepare(flash_fwd_fma<HD, float>, smem)) != cudaSuccess)
@@ -812,17 +947,19 @@ cudaError_t dkdv(int dtype, void* dk, void* dv, const void* q, const void* k,
                  cudaStream_t st) {
   cudaError_t err;
   if (dtype == 1) {
-    constexpr int BQ = HD == 128 ? 32 : 64;
-    const size_t smem = sizeof(bf16) * (2 * 64 * (HD + 8) + 2 * BQ * (HD + 8) +
-                                        2 * HD * (BQ + 8)) +
-                        sizeof(float) * 2 * BQ;
-    if ((err = prepare(flash_bwd_dkdv_bf16<HD, BQ>, smem)) != cudaSuccess)
+    using C = DkdvTiles<HD>;
+    CUtensorMap mq, mk, mv, mdo;
+    if (!hopper::bshd_map(&mq, q, B, S, H, HD, C::BQ) ||
+        !hopper::bshd_map(&mk, k, B, Sk, H, HD, C::BKc) ||
+        !hopper::bshd_map(&mv, v, B, Sk, H, HD, C::BKc) ||
+        !hopper::bshd_map(&mdo, dO, B, S, H, HD, C::BQ))
+      return cudaErrorInvalidValue;
+    const size_t smem = C::smem();
+    if ((err = prepare(flash_bwd_dkdv_bf16<HD>, smem)) != cudaSuccess)
       return err;
-    flash_bwd_dkdv_bf16<HD, BQ>
-        <<<dim3(cdiv(Sk, 64), H, B), kThreads, smem, st>>>(
-            static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-            static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-            static_cast<const bf16*>(v), static_cast<const bf16*>(dO),
+    flash_bwd_dkdv_bf16<HD>
+        <<<dim3(cdiv(Sk, C::BKc), H, B), kWsThreads, smem, st>>>(
+            mq, mk, mv, mdo, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
             static_cast<const float*>(lse), static_cast<const float*>(delta),
             H, S, Sk, causal);
   } else {
@@ -848,16 +985,20 @@ cudaError_t dq(int dtype, void* dqp, const void* q, const void* k,
                float sm_scale, cudaStream_t st) {
   cudaError_t err;
   if (dtype == 1) {
-    constexpr int BK = 64;
-    const size_t smem =
-        sizeof(bf16) * ((128 + 2 * BK) * (HD + 8) + HD * (BK + 8));
-    if ((err = prepare(flash_bwd_dq_bf16<HD, BK>, smem)) != cudaSuccess)
+    using C = DqTiles<HD>;
+    CUtensorMap mq, mk, mv, mdo;
+    if (!hopper::bshd_map(&mq, q, B, S, H, HD, C::BQ) ||
+        !hopper::bshd_map(&mk, k, B, Sk, H, HD, C::BK) ||
+        !hopper::bshd_map(&mv, v, B, Sk, H, HD, C::BK) ||
+        !hopper::bshd_map(&mdo, dO, B, S, H, HD, C::BQ))
+      return cudaErrorInvalidValue;
+    const size_t smem = C::smem();
+    if ((err = prepare(flash_bwd_dq_bf16<HD>, smem)) != cudaSuccess)
       return err;
-    flash_bwd_dq_bf16<HD, BK><<<dim3(cdiv(S, 64), H, B), kThreads, smem, st>>>(
-        static_cast<bf16*>(dqp), static_cast<const bf16*>(q),
-        static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(dO), static_cast<const float*>(lse),
-        static_cast<const float*>(delta), H, S, Sk, causal, sm_scale);
+    flash_bwd_dq_bf16<HD><<<dim3(cdiv(S, C::BQ), H, B), kWsThreads, smem, st>>>(
+        mq, mk, mv, mdo, static_cast<bf16*>(dqp),
+        static_cast<const float*>(lse), static_cast<const float*>(delta), H,
+        S, Sk, causal, sm_scale);
   } else {
     const size_t smem = sizeof(float) * (96 * (HD + 1) + 16 * 32 + 2 * 16);
     if ((err = prepare(flash_bwd_dq_fma<HD, float>, smem)) != cudaSuccess)
