@@ -4,17 +4,15 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled at first
 use, by ``nvcc`` for ``sm_90a``, into
 ``build/kernels/<name>-<hash>.so`` at the checkout root (git-ignored),
 then loaded with ``ctypes`` by its wrapper module. The hash covers the
-source, every ``csrc/`` header it includes (``#include "..."``, followed
-through headers), and the flags, so a library is reused only for exactly
-the code and flags it was built from; a fresh checkout builds everything
-anew. :func:`build_all` starts one ``nvcc`` per source at once,
+source, every ``csrc/*.cuh`` header (any source may include one) and the
+flags, so a library is reused only for exactly the code and flags it was
+built from; a fresh checkout builds everything anew. :func:`build_all` starts one ``nvcc`` per source at once,
 so a caller that needs every kernel waits for the slowest build only.
 """
 from __future__ import annotations
 
 import hashlib
 import os
-import re
 import shutil
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
@@ -38,24 +36,9 @@ def _nvcc() -> str:
     return found
 
 
-_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
-
-
 def sources(name: str) -> List[Path]:
-    """``csrc/<name>.cu`` and the ``csrc/`` headers it includes, directly
-    or through other headers, in the order they are first met."""
-    found: List[Path] = []
-    todo = [CSRC / f"{name}.cu"]
-    while todo:
-        path = todo.pop(0)
-        if path in found:
-            continue
-        found.append(path)
-        for inc in _INCLUDE.findall(path.read_bytes()):
-            dep = (path.parent / inc.decode()).resolve()
-            if dep.is_file() and CSRC in dep.parents:
-                todo.append(dep)
-    return found
+    """``csrc/<name>.cu`` and every ``csrc/`` header."""
+    return [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
 
 
 def library_path(name: str) -> Path:

@@ -9,7 +9,8 @@
 // d[4j + 0..1] = D[16w + g][8j + 2t + 0..1] and
 // d[4j + 2..3] = D[16w + g + 8][8j + 2t + 0..1]. A bf16 A operand from
 // registers takes the mma.sync m16n8k16 layout, so the accumulator of
-// n8 groups 2kk and 2kk + 1 is the A fragment of k-step kk (see c_to_a).
+// n8 groups 2kk and 2kk + 1 is the A fragment of k-step kk (`to_a` in
+// flash_attention.cu).
 //
 // Shared-memory operands are tiles that TMA wrote with a 128-byte swizzle
 // (64-byte at head_dim 32): each row of one column chunk is RB bytes, a
