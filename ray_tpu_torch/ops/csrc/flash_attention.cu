@@ -33,11 +33,13 @@
 // the operations side, and the forward's one exponential per pair costs
 // the SFU about as long as the products cost the tensor cores. On Hopper
 // the tensor cores' rate needs wgmma fed from shared memory by loads that
-// overlap it; as built, each kernel reaches a quarter to a fifth of that
-// rate, held by the dependent chain inside a warpgroup (product, then
-// softmax or dS, then the next product), which only the block's other
-// warpgroup overlaps (PERF.md has the measurements). The bf16 kernels
-// are built as
+// overlap it, and the elementwise work between products must stay free
+// of branches (a masked value is a select: per-element branches cost
+// the backward a quarter of its time). As built, each kernel reaches a
+// quarter to a third of the tensor-core rate, held by the dependent chain
+// inside a warpgroup (product, then softmax or dS, then the next
+// product), which only the block's other warpgroup overlaps (PERF.md has
+// the measurements). The bf16 kernels are built as
 //   - one block of two consumer warpgroups (64 rows, or 64 keys, each)
 //     and a producer warpgroup whose first warp issues the loads; the
 //     producer hands registers to the consumers (setmaxnreg, 24 / 240);
@@ -104,8 +106,10 @@ __device__ __forceinline__ float round_to(float x) {
   return to_float(from_float<T>(x));
 }
 
+// Whether (row, col) is masked out; no short-circuit, so that a masked
+// value is a select and not a branch.
 __device__ __forceinline__ bool masked(int row, int col, int Sk, int causal) {
-  return col >= Sk || (causal && col > row);
+  return (col >= Sk) | ((causal != 0) & (col > row));
 }
 
 // ------------------------------------------------------------ bf16 kernels
@@ -470,10 +474,10 @@ __global__ void __launch_bounds__(kWsThreads, 1) flash_bwd_dkdv_bf16(
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int qi = 8 * c + 2 * t + (i & 1);
+          const float p = hopper::ex2(fmaf(st[4 * c + i], kLog2e, -sl[qi]));
           st[4 * c + i] =
-              edge && masked(q0 + qi, i < 2 ? key0 : key1, Sk, causal)
-                  ? 0.f
-                  : hopper::ex2(fmaf(st[4 * c + i], kLog2e, -sl[qi]));
+              edge & masked(q0 + qi, i < 2 ? key0 : key1, Sk, causal) ? 0.f
+                                                                       : p;
         }
       // dV += bf16(P^T) . dO, in flight while dS^T is formed.
       uint32_t pa[BQ / 16][4];
@@ -627,10 +631,12 @@ __global__ void __launch_bounds__(kWsThreads, 1) flash_bwd_dq_bf16(
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int row = i < 2 ? row0 : row1;
+          const float e =
+              hopper::ex2(fmaf(sc[4 * c + i], kLog2e, i < 2 ? -lse0 : -lse1));
           const float p =
-              edge && masked(row, k0 + 8 * c + 2 * t + (i & 1), Sk, causal)
+              edge & masked(row, k0 + 8 * c + 2 * t + (i & 1), Sk, causal)
                   ? 0.f
-                  : hopper::ex2(fmaf(sc[4 * c + i], kLog2e, i < 2 ? -lse0 : -lse1));
+                  : e;
           sc[4 * c + i] = p * (dp[4 * c + i] - (i < 2 ? dl0 : dl1));  // dS
         }
       // dQ += bf16(dS) . K
