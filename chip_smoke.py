@@ -9,13 +9,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
    and the build of every kernel source in this checkout
    (``ray_tpu_torch/ops/csrc/*.cu``, one ``nvcc`` each, started
    together; timed, with ptxas' register/spill report per kernel);
-2. K1, the paged-attention kernel (``paged_attention.cu``), held
-   against its plain PyTorch version at GPT-2-small decode shapes (16
-   slots, 12 heads, head_dim 64, page 16, 64 table columns, mixed
-   lengths up to 1023, out-of-order and sentinel-padded tables, a
-   mapped page past ``pos``), bf16 fp and int8 pools, and timed beside
-   the plain version, ``scaled_dot_product_attention`` over pre-gathered
-   contiguous K/V and the card's bandwidth bound;
+2. K1, the paged-attention kernel (``paged_attention.cu``: split-K over
+   page-table columns in a thread-block cluster, TMA page loads), its
+   launch plan and how many of its clusters the card holds, held against
+   its plain PyTorch version at GPT-2-small decode shapes (16 slots, 12
+   heads, head_dim 64, page 16, 64 table columns, mixed lengths up to
+   1023, out-of-order and sentinel-padded tables, a mapped page past
+   ``pos``), bf16 fp and int8 pools, and timed (device time per call,
+   from the profiler) beside the plain version,
+   ``scaled_dot_product_attention`` over pre-gathered contiguous K/V and
+   the card's bandwidth bound; then held against the plain version and
+   timed at the 1b decode shape (16 heads, head_dim 128, 128 columns)
+   with skewed lengths (2048, 1025 and 14 slots of at most 65), and
+   held against it with pos past the table's last position;
 3. K2 and K3 (``flash_attention.cu``: forward, dK/dV, dQ) held against
    their plain versions at the training path's shape (B=32, H=12,
    S=1024, hd=64, bf16, causal; the records' max_abs_err), at B=8, a
@@ -90,6 +96,9 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Time per call of ``fn(i)`` over ``iters`` calls back to back (CUDA
+    events around the whole run, after ``warmup`` calls): the device's
+    time where it is the longer, else the host's."""
     import torch
 
     for i in range(warmup):
@@ -105,107 +114,234 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_phase(kv: str, card: str) -> dict:
-    """K1 vs its plain version, then timings, at GPT-2-small shapes. R
-    layers' pools are cycled so each timed launch reads pages no earlier
-    launch left in the 50 MB L2, as in the decode step."""
+def device_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Device time of ``fn(i)`` per call: the profiler's time of every
+    kernel, copy and memset that ``iters`` calls ran, over ``iters``. A
+    short kernel launched back to back runs faster than the host can
+    launch it, so CUDA events around the run (:func:`cuda_ms`) would time
+    the host; this leaves the host's gaps out."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(warmup):
+        fn(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(i)
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    if us <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    return us / iters / 1e3
+
+
+# K1's decode shapes. "small": GPT-2 small's serving engine (16 slots,
+# page 16, max_len 1024), mixed lengths up to 1023. "1b": CONFIGS["1b"]'s
+# heads at max_seq 2048, skewed lengths: one long slot, one at half, 14
+# short ones, where one block per (slot, head) loses most.
+K1_SHAPES = {
+    "small": dict(H=12, hd=64, ps=16, max_pages=64,
+                  pos=[0, 15, 16, 17, 100, 255, 256, 333, 511, 600, 700,
+                       800, 900, 1000, 1022, 1023]),
+    "1b": dict(H=16, hd=128, ps=16, max_pages=128,
+               pos=[2047, 1024, 0, 5, 15, 16, 17, 31, 32, 40, 47, 48, 50,
+                    60, 63, 64]),
+}
+
+
+def decode_inputs(shape, kv: str, layers: int = 6, seed: int = 1):
+    """One decode step's K1 inputs on the card at ``shape`` (a
+    :data:`K1_SHAPES` name or such a dict), bf16 q over bf16 (``kv="fp"``)
+    or int8 pools, with ``layers`` layers' pools so that cycling them
+    (``args(i)``) reads pages no earlier launch left in the 50 MB L2, as
+    in the decode step. Page tables are out of order, sentinel-padded,
+    and every third slot maps one page past its length."""
+    from types import SimpleNamespace
+
     import numpy as np
     import torch
-    import torch.nn.functional as F
 
-    from ray_tpu_torch.models import gpt_decode as gd
-    from ray_tpu_torch.ops import paged_attention as pa
+    from ray_tpu_torch.models.gpt_decode import PT_SENTINEL
 
-    B, H, hd, ps, max_pages, R = 16, 12, 64, 16, 64, 6
+    s = K1_SHAPES[shape] if isinstance(shape, str) else shape
+    H, hd, ps, max_pages = s["H"], s["hd"], s["ps"], s["max_pages"]
+    pos = np.array(s["pos"], np.int32)
+    B = len(pos)
     n_pages = B * max_pages + 64
-    rng = np.random.default_rng(1 if kv == "fp" else 2)
-    pos = np.array([0, 15, 16, 17, 100, 255, 256, 333, 511, 600, 700,
-                    800, 900, 1000, 1022, 1023], np.int32)
-    pt = np.full((B, max_pages), gd.PT_SENTINEL, np.int32)
+    rng = np.random.default_rng(seed)
+    pt = np.full((B, max_pages), PT_SENTINEL, np.int32)
     perm = rng.permutation(n_pages)
     used = 0
     for b in range(B):
         n = min(int(pos[b]) // ps + 1 + (b % 3 == 0), max_pages)
-        pt[b, :n] = perm[used:used + n]      # out of order; some slots
-        used += n                            # map one page past pos
+        pt[b, :n] = perm[used:used + n]
+        used += n
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(1 if kv == "fp" else 2)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn(B, 1, H, hd, device=dev, dtype=torch.bfloat16,
                     generator=gen)
-    shape = (R, n_pages, ps, H, hd)
+    full = (layers, n_pages, ps, H, hd)
     if kv == "int8":
-        kc, vc = (torch.randint(-127, 128, shape, device=dev,
+        kc, vc = (torch.randint(-127, 128, full, device=dev,
                                 dtype=torch.int8, generator=gen)
                   for _ in range(2))
-        ks, vs = (torch.rand(R, n_pages, H, device=dev, generator=gen)
+        ks, vs = (torch.rand(layers, n_pages, H, device=dev, generator=gen)
                   * 0.02 for _ in range(2))
     else:
-        kc, vc = (torch.randn(shape, device=dev, dtype=torch.bfloat16,
+        kc, vc = (torch.randn(full, device=dev, dtype=torch.bfloat16,
                               generator=gen) for _ in range(2))
         ks = vs = None
     ptd = torch.from_numpy(pt).to(dev)
     posd = torch.from_numpy(pos).to(dev)
 
     def args(i):
-        l = i % R
+        l = i % layers
         return (q, kc[l], vc[l], ptd, posd, ps,
                 None if ks is None else ks[l], None if vs is None else vs[l])
 
+    return SimpleNamespace(kv=kv, B=B, H=H, hd=hd, ps=ps,
+                           max_pages=max_pages, n_pages=n_pages, pt=pt,
+                           pos=pos, layers=layers, args=args, q=q, kc=kc,
+                           vc=vc, ptd=ptd, posd=posd)
+
+
+def k1_work(inp) -> dict:
+    """What one K1 call must move and compute for these inputs' lengths,
+    and the card's least time for it: each live K/V row, q, the output,
+    the page table and pos (and the live pages' int8 scales) once over
+    the HBM rate; q·k and p·v over the bf16 tensor-core peak."""
+    positions = int((inp.pos.astype("int64") + 1).sum())
+    elem = 1 if inp.kv == "int8" else 2
+    nbytes = (2 * positions * inp.H * inp.hd * elem
+              + 2 * inp.B * inp.H * inp.hd * 2
+              + inp.pt.nbytes + inp.pos.nbytes)
+    if inp.kv == "int8":
+        live_pages = int(sum(int(p) // inp.ps + 1 for p in inp.pos))
+        nbytes += 2 * live_pages * inp.H * 4
+    flops = 4 * positions * inp.H * inp.hd
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS * 1e3
+    return {"nbytes": nbytes, "flops": flops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def max_err(fn, inp) -> float:
+    """max |fn - plain| over every layer's pools; raises on a non-finite
+    output."""
+    import torch
+
+    from ray_tpu_torch.ops import paged_attention as pa
+
     err = 0.0
-    for l in range(R):
-        out = pa.paged_attention_cuda(*args(l))
-        ref = pa.paged_attention_gather(*args(l))
+    for l in range(inp.layers):
+        out = fn(*inp.args(l))
+        ref = pa.paged_attention_gather(*inp.args(l))
         torch.cuda.synchronize()
         if not torch.isfinite(out).all():
-            raise AssertionError(f"K1 {kv}: non-finite output")
+            raise AssertionError(f"K1 {inp.kv}: non-finite output")
         err = max(err, (out.float() - ref.float()).abs().max().item())
+    return err
+
+
+def kernel_phase(kv: str, card: str) -> dict:
+    """K1 vs its plain version, then timings, at GPT-2-small decode shapes
+    (``K1_SHAPES["small"]``); then held against the
+    plain version and timed at the 1b skewed shape (on a log line; the
+    record stays at the serving shape). Six layers' pools are cycled so
+    each timed launch reads pages no earlier launch left in the 50 MB
+    L2, as in the decode step."""
+    import torch
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    inp = decode_inputs("small", kv, seed=1 if kv == "fp" else 2)
+    plan = pa._launch_plan(inp.max_pages, inp.ps, inp.hd,
+                           inp.kc.element_size())
+    clusters = pa._prepare(pa._load(), 1, kv == "int8", inp.hd, inp.ps,
+                           inp.max_pages, plan, 0)
+    log(f"K1 {kv} plan: {plan} -> grid ({plan.cluster}, {inp.H}, {inp.B}),"
+        f" {inp.H * inp.B} clusters of {plan.cluster} blocks x 128 threads;"
+        f" the card holds {clusters} clusters at once")
+    err = max_err(pa.paged_attention_cuda, inp)
     log(f"K1 {kv}: kernel vs plain max_abs_err={err:.6g} "
         f"(tolerance {KERNEL_TOL})")
     if not err <= KERNEL_TOL:
         raise AssertionError(f"K1 {kv}: kernel disagrees with plain "
                              f"version: {err} > {KERNEL_TOL}")
 
-    ms = cuda_ms(lambda i: pa.paged_attention_cuda(*args(i)), 240)
-    plain_ms = cuda_ms(lambda i: pa.paged_attention_gather(*args(i)), 30)
+    # Device time per call (the profiler's): a launch of K1 is shorter
+    # than the host's cost of making one, so events around back-to-back
+    # launches time the host (logged beside it as call_ms).
+    args = inp.args
+    ms = device_ms(lambda i: pa.paged_attention_cuda(*args(i)), 240)
+    call_ms = cuda_ms(lambda i: pa.paged_attention_cuda(*args(i)), 240)
+    plain_ms = device_ms(lambda i: pa.paged_attention_gather(*args(i)), 30)
     library_ms = None
     if kv == "fp":
         # Pre-gathered contiguous K/V [B, H, V, hd] per layer, masked to
         # <= pos: what a dense attention library call would be handed.
-        V = max_pages * ps
-        ptc = torch.from_numpy(pt.clip(0, n_pages - 1).astype(np.int64)
-                               ).to(dev)
-        kd = [kc[l][ptc].reshape(B, V, H, hd).transpose(1, 2).contiguous()
-              for l in range(R)]
-        vd = [vc[l][ptc].reshape(B, V, H, hd).transpose(1, 2).contiguous()
-              for l in range(R)]
-        mask = (torch.arange(V, device=dev)[None, :]
-                <= posd[:, None].long())[:, None, None, :]
-        qd = q.transpose(1, 2).contiguous()          # [B, H, 1, hd]
-        library_ms = cuda_ms(lambda i: F.scaled_dot_product_attention(
-            qd, kd[i % R], vd[i % R], attn_mask=mask), 240)
-    positions = int((pos.astype(np.int64) + 1).sum())
-    elem = 1 if kv == "int8" else 2
-    nbytes = (2 * positions * H * hd * elem          # K and V, live rows
-              + 2 * B * H * hd * 2                   # q in, out
-              + pt.nbytes + pos.nbytes)
-    if kv == "int8":
-        live_pages = int(sum(int(p) // ps + 1 for p in pos))
-        nbytes += 2 * live_pages * H * 4             # ks, vs
-    flops = 4 * positions * H * hd                   # q·k and p·v
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+        B, H, hd, V = inp.B, inp.H, inp.hd, inp.max_pages * inp.ps
+        ptc = inp.ptd.long().clamp(0, inp.n_pages - 1)
+        kd = [inp.kc[l][ptc].reshape(B, V, H, hd).transpose(1, 2)
+              .contiguous() for l in range(inp.layers)]
+        vd = [inp.vc[l][ptc].reshape(B, V, H, hd).transpose(1, 2)
+              .contiguous() for l in range(inp.layers)]
+        mask = (torch.arange(V, device=inp.q.device)[None, :]
+                <= inp.posd[:, None].long())[:, None, None, :]
+        qd = inp.q.transpose(1, 2).contiguous()      # [B, H, 1, hd]
+        library_ms = device_ms(lambda i: F.scaled_dot_product_attention(
+            qd, kd[i % inp.layers], vd[i % inp.layers], attn_mask=mask),
+            240)
+        del kd, vd
+    work = k1_work(inp)
     rec = {"name": f"paged_attention_{'int8' if kv == 'int8' else 'bf16'}",
            "route": "cuda", "source": SOURCE, "replaces": REPLACES,
            "launches": 0, "max_abs_err": err, "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "library_ms": library_ms}
-    log(f"K1 {kv} timing [{card}]: kernel_ms={ms:.6g} plain_ms="
+           "plain_ms": plain_ms, "bound_ms": work["bound_ms"],
+           "bound_by": work["bound_by"], "library_ms": library_ms}
+    log(f"K1 {kv} timing [{card}]: kernel_ms={ms:.6g} (device; "
+        f"{call_ms:.6g} a call back to back, host included) plain_ms="
         f"{plain_ms:.6g} library_ms={library_ms} bound_ms="
-        f"{rec['bound_ms']:.6g} ({rec['bound_by']}: {nbytes} B, {flops} "
-        f"flop) roofline_share={rec['bound_ms'] / ms:.3f}")
-    del kc, vc, ks, vs
+        f"{rec['bound_ms']:.6g} ({rec['bound_by']}: {work['nbytes']} B, "
+        f"{work['flops']} flop) roofline_share={rec['bound_ms'] / ms:.3f}")
+    del inp
     torch.cuda.empty_cache()
+
+    # The 1b skewed shape: where one block per (slot, head) lost most.
+    inp = decode_inputs("1b", kv, seed=3 if kv == "fp" else 4)
+    err1b = max_err(pa.paged_attention_cuda, inp)
+    ms1b = device_ms(lambda i: pa.paged_attention_cuda(*inp.args(i)), 240)
+    work = k1_work(inp)
+    log(f"K1 {kv} 1b skewed [{card}] (B={inp.B} H={inp.H} hd={inp.hd} "
+        f"page {inp.ps}, {inp.max_pages} columns, lengths "
+        f"{(inp.pos + 1).tolist()}; plan "
+        f"{pa._launch_plan(inp.max_pages, inp.ps, inp.hd, inp.kc.element_size())}"
+        f"): max_abs_err={err1b:.6g} (tolerance {KERNEL_TOL}) kernel_ms="
+        f"{ms1b:.6g} bound_ms={work['bound_ms']:.6g} ({work['bound_by']}: "
+        f"{work['nbytes']} B) roofline_share={work['bound_ms'] / ms1b:.3f}")
+    if not err1b <= KERNEL_TOL:
+        raise AssertionError(f"K1 {kv} at the 1b skewed shape: kernel "
+                             f"disagrees with plain version: {err1b}")
+    del inp
+    torch.cuda.empty_cache()
+
+    # pos past the table's last position, as the engine passes it in a
+    # request's last chunk: every position of the table is attended.
+    inp = decode_inputs(dict(K1_SHAPES["small"], pos=[1026, 1060, 1023, 5]),
+                        kv, layers=1, seed=5 if kv == "fp" else 6)
+    errp = max_err(pa.paged_attention_cuda, inp)
+    log(f"K1 {kv} pos past the table ({inp.max_pages} columns of "
+        f"{inp.ps}, pos {inp.pos.tolist()}): max_abs_err={errp:.6g} "
+        f"(tolerance {KERNEL_TOL})")
+    if not errp <= KERNEL_TOL:
+        raise AssertionError(f"K1 {kv} with pos past the table: kernel "
+                             f"disagrees with plain version: {errp}")
+    del inp
     return rec
 
 
@@ -265,10 +401,17 @@ def build_phase():
         for line in out.splitlines():
             if "Compiling entry function" in line:
                 # mangled name: keep the kernel's and its template args'
-                m = re.search(
-                    r"(flash_(?:fwd|bwd)_\w+|paged_attention_kernel\w+)",
-                    line)
-                fn = m.group(1)[:36] if m else line.split("'")[1]
+                m = re.search(r"flash_(?:fwd|bwd)_\w+", line)
+                k1 = re.search(r"paged_attention_kernelI(\w+?)Lb([01])E",
+                               line)
+                if m:
+                    fn = m.group(0)[:36]
+                elif k1:   # mangled T: "f" or "13__nv_bfloat16"
+                    t = re.sub(r"^\d+", "", k1.group(1))
+                    fn = (f"paged_attention_kernel<{'float' if t == 'f' else t}"
+                          f", quant={k1.group(2)}>")
+                else:
+                    fn = line.split("'")[1]
             elif "registers" in line or "spill" in line:
                 log(f"  ptxas {fn}: {line.split(':', 1)[-1].strip()}")
                 spills = re.search(r"(\d+) bytes spill stores", line)

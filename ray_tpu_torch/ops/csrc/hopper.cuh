@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks for the flash-attention kernels, as raw
-// PTX: mbarriers, TMA tile loads, wgmma shared-memory descriptors and the
-// wgmma products themselves, plus the host-side tensor-map encoder taken
-// from the driver through the runtime (no -lcuda link).
+// Hopper (sm_90a) building blocks for the flash-attention and
+// paged-attention kernels, as raw PTX: mbarriers, TMA tile loads, wgmma
+// shared-memory descriptors and the wgmma products themselves, plus the
+// host-side tensor-map encoder taken from the driver through the runtime
+// (no -lcuda link).
 //
 // wgmma (PTX ISA, "Asynchronous Warpgroup Level Matrix Multiply"): four
 // warps issue one m64nNk16 product. The f32 accumulator of thread
@@ -100,7 +101,26 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// 4 bytes from global into shared memory without a register, in flight
+// until cp_async_wait_all() in the same thread.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 // ------------------------------------------------------------------ TMA
+// Brings a tensor map (a __grid_constant__ kernel parameter) into the
+// TMA unit's cache ahead of its first load.
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
 // One box of a 4-D tensor map ({hd, H, S, B}, innermost first) into
 // shared memory; completion is counted in bytes on `bar`. Parts of the
 // box past the tensor's edge arrive as zeros.
@@ -388,6 +408,33 @@ inline bool bshd_map(CUtensorMap* map, const void* base, int B, int S, int H,
                 hd >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B
                          : CU_TENSOR_MAP_SWIZZLE_64B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A map of a contiguous paged pool [n_pages, ps, H, hd] ({hd, H, ps,
+// n_pages} innermost first) of `type` elements of `elem` bytes, whose box
+// is one (page, head): ps rows of hd elements, unswizzled, so the rows
+// land in shared memory one after the other. hd * elem must be a multiple
+// of 16 bytes and ps at most 256. Returns false if it cannot be made.
+inline bool page_map(CUtensorMap* map, const void* base,
+                     CUtensorMapDataType type, int elem, int n_pages, int ps,
+                     int H, int hd) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t e = static_cast<cuuint64_t>(elem);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(ps),
+                              static_cast<cuuint64_t>(n_pages)};
+  const cuuint64_t strides[3] = {hd * e, H * hd * e,
+                                 static_cast<cuuint64_t>(ps) * H * hd * e};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(hd), 1,
+                             static_cast<cuuint32_t>(ps), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, type, 4, const_cast<void*>(base), dims, strides, box,
+                unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

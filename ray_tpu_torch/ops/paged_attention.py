@@ -15,7 +15,10 @@ pools pass per-(page, head) f32 scales ``ks``/``vs [n_pages, H]``.
 - :func:`paged_attention_cuda` is the kernel's wrapper
   (``csrc/paged_attention.cu``). On a CUDA tensor it launches the kernel
   or raises; it takes the plain version only for tensors on the CPU.
-  :data:`launches` counts its launches.
+  :data:`launches` counts its launches. The kernel splits each (slot,
+  head) over a cluster of up to 8 blocks by page-table columns;
+  :func:`_launch_plan` sizes the cluster, each rank's columns, the ring
+  of TMA page slots and the shared memory from shapes alone.
 
 The kernel is built from the source in this package at first use, by
 ``nvcc`` into a shared library with a plain C interface
@@ -24,8 +27,9 @@ The kernel is built from the source in this package at first use, by
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
-from typing import Optional
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -36,14 +40,76 @@ from . import _build
 launches = 0
 
 MAX_HEAD_DIM = 128
-_THREADS = 128
-_WARPS = _THREADS // 32
-_MAX_VEC = 16                    # elements in one 16-byte load (int8)
-_SMEM_LIMIT = 48 * 1024          # launch limit without an opt-in
+MAX_CLUSTER = 8                  # blocks per (slot, head): portable size
+MAX_PAGE_SIZE = 256              # positions per TMA box
+_WARPS = 4                       # 128 threads a block
+_SMEM_LIMIT = 232448             # an H100 block's shared memory (227 KB)
+# The ring of page slots a block keeps in flight. Each block's life is
+# short and the card holds as many blocks as their shared memory allows,
+# so a small ring that is refilled beats a large one (measured on the
+# H100: 16 KB against 8, 32, 64 and 96 KB; PERF.md).
+RING_BYTES = 16 * 1024
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _lock = threading.Lock()
 _lib = None
+_plans_ready = set()     # (dtype, quant, plan, device) readied on the card
+
+
+class LaunchPlan(NamedTuple):
+    """How one call is launched: ``cluster`` blocks per (slot, head), at
+    most ``cols_per_rank`` page-table columns per block, a ring of
+    ``stages`` page slots, ``smem`` bytes of shared memory a block."""
+    cluster: int
+    cols_per_rank: int
+    stages: int
+    smem: int
+
+
+def _smem_bytes(cluster: int, cols_per_rank: int, stages: int,
+                page_size: int, hd: int, elem: int) -> int:
+    """A block's shared memory, as ``Layout`` in
+    ``csrc/paged_attention.cu`` sizes it for the launch (here only to
+    refuse a table the card cannot hold): the ring, then 4-byte words (the
+    rank's logits, q, the warps' p·v rows, the ranks' partial rows, max
+    and exp-sum, the live pages' scales, pages and count), then one
+    8-byte mbarrier per slot."""
+    ring = stages * page_size * hd * elem
+    words = (cols_per_rank * page_size + (1 + _WARPS + cluster) * hd + 2
+             + 3 * cols_per_rank + 1)
+    return (ring + 4 * words + 7) // 8 * 8 + 8 * stages
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_plan(max_pages: int, page_size: int, hd: int, elem: int
+                 ) -> LaunchPlan:
+    """The launch for a table of ``max_pages`` columns of ``page_size``
+    positions over pools of ``elem``-byte elements at ``hd``: from shapes
+    only (never ``pos``). Raises ValueError where the kernel cannot run."""
+    if max_pages < 1 or page_size < 1:
+        raise ValueError(f"empty page table ({max_pages} columns of "
+                         f"{page_size})")
+    if page_size > MAX_PAGE_SIZE:
+        raise ValueError(f"page_size {page_size} > {MAX_PAGE_SIZE} (one TMA "
+                         f"box per page)")
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {hd} outside 1..{MAX_HEAD_DIM}")
+    cluster = min(MAX_CLUSTER, max_pages)
+    cpr = -(-max_pages // cluster)
+    stages = max(1, min(2 * cpr, RING_BYTES // (page_size * hd * elem)))
+    smem = _smem_bytes(cluster, cpr, stages, page_size, hd, elem)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"{max_pages} columns of {page_size} positions need "
+                         f"{smem} B of shared memory a block (limit "
+                         f"{_SMEM_LIMIT})")
+    return LaunchPlan(cluster, cpr, stages, smem)
+
+
+def rank_columns(max_pages: int, cluster: int) -> List[range]:
+    """The page-table columns each block of a cluster takes (the kernel's
+    ``[r * max_pages / C, (r + 1) * max_pages / C)``)."""
+    return [range(r * max_pages // cluster, (r + 1) * max_pages // cluster)
+            for r in range(cluster)]
 
 
 def deq_page(codes: torch.Tensor, scales: torch.Tensor, dtype: torch.dtype
@@ -93,8 +159,12 @@ def _load():
             lib = ctypes.CDLL(str(path))
             fn = lib.rt_paged_attention
             vp, ci = ctypes.c_void_p, ctypes.c_int
-            fn.argtypes = [vp] * 8 + [ci] * 8 + [ctypes.c_float, ci, vp]
+            fn.argtypes = ([vp] * 8 + [ci] * 8 + [ctypes.c_float] + [ci] * 3
+                           + [vp])
             fn.restype = ci
+            prep = lib.rt_paged_attention_prepare
+            prep.argtypes = [ci] * 8
+            prep.restype = ci
             _lib = lib
         return _lib
 
@@ -144,13 +214,22 @@ def _check(q, kc, vc, pt, pos, page_size, ks, vs) -> bool:
                          f"of {vec} for {kc.dtype} pools")
     if kc.data_ptr() % 16 or vc.data_ptr() % 16:
         raise ValueError("pools must be 16-byte aligned")
-    smem = 4 * (MAX_HEAD_DIM + _WARPS + _THREADS * _MAX_VEC
-                + pt.shape[1] * page_size)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"max_pages * page_size = {pt.shape[1] * page_size}"
-                         f" positions need {smem} B of shared memory "
-                         f"(limit {_SMEM_LIMIT})")
     return quant
+
+
+def _prepare(lib, dtype: int, quant: bool, hd: int, page_size: int,
+             max_pages: int, plan: LaunchPlan, device: int) -> int:
+    """Ready ``plan`` on ``device`` (the kernel's shared-memory limit) and
+    return how many of its clusters the card holds at once
+    (``cudaOccupancyMaxActiveClusters``); raises if the card cannot run
+    one."""
+    n = lib.rt_paged_attention_prepare(dtype, int(quant), hd, page_size,
+                                       max_pages, plan.cluster, plan.stages,
+                                       device)
+    if n <= 0:
+        raise RuntimeError(f"paged attention: the card cannot hold a cluster"
+                           f" of {plan} (occupancy query returned {n})")
+    return n
 
 
 def paged_attention_cuda(q, kc, vc, pt, pos, page_size: int,
@@ -167,16 +246,25 @@ def paged_attention_cuda(q, kc, vc, pt, pos, page_size: int,
         raise ValueError(f"paged_attention_cuda: no kernel for "
                          f"{q.device.type} tensors")
     quant = _check(q, kc, vc, pt, pos, page_size, ks, vs)
-    lib = _load()
     B, _, H, hd = q.shape
+    max_pages = pt.shape[1]
+    plan = _launch_plan(max_pages, page_size, hd, kc.element_size())
+    lib = _load()
+    device = q.device.index or 0
+    dtype = _DTYPE_CODE[q.dtype]
+    key = (dtype, quant, plan, device)
+    if key not in _plans_ready:       # once per plan, before its launches
+        with _lock:
+            _prepare(lib, dtype, quant, hd, page_size, max_pages, plan,
+                     device)
+            _plans_ready.add(key)
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device)
     rc = lib.rt_paged_attention(
         out.data_ptr(), q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
         ks.data_ptr() if quant else None, vs.data_ptr() if quant else None,
         pt.data_ptr(), pos.data_ptr(), B, H, hd, kc.shape[0], page_size,
-        pt.shape[1], _DTYPE_CODE[q.dtype], int(quant), softmax_scale(hd),
-        q.device.index or 0, stream.cuda_stream)
+        max_pages, dtype, int(quant), softmax_scale(hd), plan.cluster,
+        plan.stages, device, torch._C._cuda_getCurrentRawStream(device))
     if rc != 0:
         raise RuntimeError(f"paged attention kernel launch failed: CUDA "
                            f"error {rc}")

@@ -200,3 +200,185 @@ def test_cuda_kernel_matches_plain(dtype, kv):
     np.testing.assert_allclose(out.float().cpu().numpy(),
                                ref.float().cpu().numpy(), rtol=0,
                                atol=ATOL[dtype])
+
+
+# ---- the launch plan (CPU: shapes only) --------------------------------
+
+def test_launch_plan_rank_columns_partition_the_table():
+    """For every table width 1..300: a cluster of min(8, max_pages)
+    blocks whose contiguous column ranges cover [0, max_pages) once, none
+    wider than cols_per_rank, with a ring of 1..2*cols_per_rank slots and
+    the shared memory the kernel's layout needs."""
+    for max_pages in range(1, 301):
+        for ps, hd, elem in ((16, 64, 2), (8, 32, 4), (32, 128, 1)):
+            plan = pa._launch_plan(max_pages, ps, hd, elem)
+            assert plan.cluster == min(pa.MAX_CLUSTER, max_pages)
+            ranges = pa.rank_columns(max_pages, plan.cluster)
+            cols = [j for r in ranges for j in r]
+            assert cols == list(range(max_pages))
+            assert max(len(r) for r in ranges) == plan.cols_per_rank
+            assert 1 <= plan.stages <= 2 * plan.cols_per_rank
+            assert plan.smem == pa._smem_bytes(plan.cluster,
+                                               plan.cols_per_rank,
+                                               plan.stages, ps, hd, elem)
+            assert plan.smem <= pa._SMEM_LIMIT
+
+
+@pytest.mark.parametrize("name", ["nano", "small", "medium", "1b"])
+def test_launch_plan_fits_every_config(name):
+    """Every CONFIGS model at its max_seq, for page sizes 8/16/32 and
+    f32, bf16 and int8 pools, fits an H100 block's 227 KB, with a ring of
+    at least one page slot and at most a rank's K and V pages."""
+    from ray_tpu_torch.models import gpt
+
+    cfg = gpt.CONFIGS[name]
+    hd = cfg.head_dim
+    for ps in (8, 16, 32):
+        max_pages = -(-cfg.max_seq // ps)
+        for elem in (4, 2, 1):
+            plan = pa._launch_plan(max_pages, ps, hd, elem)
+            assert plan.smem <= pa._SMEM_LIMIT
+            assert 1 <= plan.stages <= 2 * plan.cols_per_rank
+
+
+def test_launch_plan_raises_where_the_kernel_cannot_run():
+    """Pages wider than a TMA box, head rows past 128, an empty table and
+    a table whose rank logits outgrow shared memory are refused; the
+    16,384-position table the first kernel refused is taken."""
+    pa._launch_plan(1024, 16, 64, 2)
+    for args in ((64, 512, 64, 2), (64, 16, 256, 2), (0, 16, 64, 2),
+                 (1_000_000, 16, 64, 2)):
+        with pytest.raises(ValueError):
+            pa._launch_plan(*args)
+
+
+# ---- the kernel on the card --------------------------------------------
+
+# (q dtype, pool): f32 and bf16 fp pools, int8 pools under both.
+KINDS = [("float32", "fp"), ("bfloat16", "fp"), ("bfloat16", "int8"),
+         ("float32", "int8")]
+
+
+def _edge_slots(max_pages, ps):
+    """(mapped columns, pos) per slot: lengths one position before, at
+    and after every rank's first and last column edge; pos = -1; a slot
+    whose every column is a sentinel; live columns only in the last
+    rank; pos past the table's last position (which the engine passes
+    in a request's last chunk), with every column mapped and with the
+    next-to-last column unmapped; every other column unmapped
+    (sentinels and, for the last slot, an index past the pool)."""
+    cluster = min(pa.MAX_CLUSTER, max_pages)
+    ranges = pa.rank_columns(max_pages, cluster)
+    full = list(range(max_pages))
+    slots = []
+    for c in sorted({c for r in ranges for c in (r.start, r.stop)}):
+        for p in (c * ps - 1, c * ps, c * ps + 1):
+            if 0 <= p < max_pages * ps:
+                slots.append((full, p))
+    slots += [(full, -1), ([], max_pages * ps - 1),
+              (list(ranges[-1]), max_pages * ps - 1),
+              (full, max_pages * ps + 3),
+              ([c for c in full if c != max_pages - 2], max_pages * ps + 3),
+              (full[::2], max_pages * ps - 2)]
+    return slots
+
+
+def _expected(kernel_args, ps, n_pages):
+    """The kernel's function through the plain version: a column that is
+    unmapped (sentinel or outside the pool) at or before pos is outside
+    the softmax, which the plain version gets from a table holding only
+    the live columns, in order, with pos cut to the count of valid
+    positions; a slot with no live column is zeros."""
+    q, kc, vc, pt, pos, _, ks, vs = kernel_args
+    pt_np, pos_np = pt.cpu().numpy(), pos.cpu().numpy()
+    pt2 = np.full_like(pt_np, tgd.PT_SENTINEL)
+    pos2 = np.zeros_like(pos_np)
+    empty = []
+    for b, p in enumerate(pos_np):
+        n_vis = 0 if p < 0 else min(p // ps + 1, pt_np.shape[1])
+        live = [(pt_np[b, j], j) for j in range(n_vis)
+                if 0 <= pt_np[b, j] < n_pages]
+        if not live:
+            empty.append(b)
+            continue
+        pt2[b, :len(live)] = [page for page, _ in live]
+        pos2[b] = sum(min(ps, p - j * ps + 1) for _, j in live) - 1
+    ref = pa.paged_attention_gather(
+        q, kc, vc, torch.from_numpy(pt2).to(pt.device),
+        torch.from_numpy(pos2).to(pos.device), ps, ks, vs)
+    ref[empty] = 0
+    return ref, empty
+
+
+def _card_case(dtype, kv, hd, ps, max_pages, slots, seed, H=2):
+    rng = np.random.default_rng(seed)
+    B = len(slots)
+    n_pages = sum(len(m) for m, _ in slots) + 4
+    perm = rng.permutation(n_pages)
+    pt = np.full((B, max_pages), tgd.PT_SENTINEL, np.int32)
+    used = 0
+    for b, (mapped, _) in enumerate(slots):
+        pt[b, mapped] = perm[used:used + len(mapped)]
+        used += len(mapped)
+    if max_pages > 1:
+        pt[-1, 1::2] = n_pages + 5          # outside the pool: unmapped
+    pos = np.array([p for _, p in slots], np.int32)
+    dev = "cuda"
+    td = getattr(torch, dtype)
+    q = torch.from_numpy(rng.standard_normal((B, 1, H, hd), np.float32)
+                         ).to(dev, td)
+    shape = (n_pages, ps, H, hd)
+    if kv == "int8":
+        kc, vc = (torch.from_numpy(rng.integers(-127, 128, shape, np.int8)
+                                   ).to(dev) for _ in range(2))
+        ks, vs = (torch.from_numpy((rng.random((n_pages, H)) * 0.02)
+                                   .astype(np.float32)).to(dev)
+                  for _ in range(2))
+    else:
+        kc, vc = (torch.from_numpy(rng.standard_normal(shape, np.float32)
+                                   ).to(dev, td) for _ in range(2))
+        ks = vs = None
+    args = (q, kc, vc, torch.from_numpy(pt).to(dev),
+            torch.from_numpy(pos).to(dev), ps, ks, vs)
+    before = pa.launches
+    out = pa.paged_attention_cuda(*args)
+    torch.cuda.synchronize()
+    assert pa.launches == before + 1        # one launch per call
+    ref, empty = _expected(args, ps, n_pages)
+    assert torch.isfinite(out).all()
+    assert (out[empty] == 0).all()
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), rtol=0,
+                               atol=ATOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,ps,max_pages", [
+    (32, 8, 5),        # fewer columns than the portable cluster size
+    (64, 16, 20),      # max_pages not a multiple of the cluster
+    (128, 32, 9),      # one rank takes two columns, the others one
+    (64, 8, 64),
+    (128, 16, 128),    # CONFIGS["1b"] at max_seq 2048: the ring refills
+])
+@pytest.mark.parametrize("dtype,kv", KINDS)
+def test_cuda_kernel_rank_edges(dtype, kv, hd, ps, max_pages):
+    """The cluster kernel against the plain version on the card at every
+    rank edge, with the slots that must give zeros and live columns in
+    the last rank only."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    _card_case(dtype, kv, hd, ps, max_pages, _edge_slots(max_pages, ps),
+               seed=hd + ps + max_pages)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,kv", KINDS)
+def test_cuda_kernel_long_table(dtype, kv):
+    """1,024 columns of 16 positions (16,384 positions, which the first
+    kernel's shared-memory logits refused), full and partial lengths."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    full = list(range(1024))
+    slots = [(full, 16383), (full, 9000), (full[:3], 40), (full, -1),
+             (full, 16400)]
+    _card_case(dtype, kv, 64, 16, 1024, slots, seed=7)
