@@ -41,7 +41,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
    divergence budget; then the same requests with 32 new tokens on an
    int8 pool, and at f32 on fp and int8 pools, where kernel and gather
    engines must agree stream for stream; then a profiled serve window;
-6. training: the flash and xla attention backends at full width (B=4,
+6. sampling, the flat pool and speculative decoding (after the threefry
+   PRNG was held on the card right after phase 3: split, 32-bit draws
+   and uniform bit-equal to the CPU's for lanes from seeds 0, 1,
+   2**31-1 and -5 at the serving logits' shape [16, 50304], Gumbel noise
+   within ``GUMBEL_ULPS``, and one ``_sample_slots`` call timed):
+   temperature 0.8 with per-request seeds (nano f32 card+K1 against the
+   CPU under the f32 budget; GPT-2 small bf16, the 12 requests twice,
+   identical); the flat pool (``paged=False``) against the paged kernel
+   engine under the bf16 budget, nano f32 card equal to the CPU;
+   speculative decoding with the n-gram and the model drafter
+   (``draft_k=4``, paged, K1) against the plain kernel engine under the
+   bf16 budget, with acceptance, tokens per round, TPOT and tok/s beside
+   the plain engine's, a ``spec_threshold`` run that falls back to K1
+   chunks, and nano f32 spec streams on the card equal to the CPU's;
+7. training: the flash and xla attention backends at full width (B=4,
    S=1024) from the same weights and batch (gradients and the loss
    after 2 steps within stated tolerances); nano at f32, 3 steps on the
    card through the kernels against 3 on the CPU through the plain
@@ -75,7 +89,15 @@ KERNEL_TOL = 1e-2                  # bf16 output: ~1-2 ulp at |x| < 2
 # the bf16 streams and three quarters of the int8 ones diverge; in f32,
 # where the two paths differ by ~1e-6 and a flip needs a logit gap that
 # small, at most one stream diverges, for fp and int8 pools alike.
-MAX_DIVERGED = {"bf16": 0.5, "int8": 0.75, "f32": 1}
+#
+# Speculative engines commit every token from the verify step, whose
+# batched GEMMs (16 slots x 5 positions) round differently from the
+# decode step's (16 x 1) in bf16, on top of gathered-einsum vs K1
+# attention: on the H100 (PERF.md) 7 of 12 bf16 spec streams parted
+# from the plain kernel engine (at steps 4-45), and 0 of 12 at f32
+# (spec vs plain, both drafters). Budget for bf16 spec streams: three
+# quarters, as int8; at f32 the f32 budget holds them to one stream.
+MAX_DIVERGED = {"bf16": 0.5, "int8": 0.75, "f32": 1, "spec_bf16": 0.75}
 
 SOURCE = "ray_tpu_torch/ops/csrc/paged_attention.cu"
 REPLACES = "ray_tpu/models/gpt_decode.py:1085"
@@ -742,10 +764,13 @@ def nano_train_phase() -> None:
         raise AssertionError("nano f32 training: card and CPU disagree")
 
 
-def serve(params, cfg, reqs, *, device, attn_kernel, kv_dtype="fp",
-          slots=16, chunk=8, max_len=1024, page_size=16):
-    """Queue every request, start the driver, drain all streams from
-    their own threads. Returns (streams, ttft_s, tpot_s, wall_s, stats)."""
+def serve(params, cfg, reqs, *, device, attn_kernel=None, seeds=None,
+          slots=16, chunk=8, max_len=1024, page_size=16, **engine_kw):
+    """Queue every request (``seeds[i]`` seeds request i's PRNG lane),
+    start the driver, drain all streams from their own threads. Other
+    keywords go to the engine (``kv_dtype``, ``temperature``, ``paged``,
+    ``spec_decode``, ...). Returns (streams, ttft_s, tpot_s, wall_s,
+    stats)."""
     import numpy as np
     import torch
 
@@ -753,10 +778,12 @@ def serve(params, cfg, reqs, *, device, attn_kernel, kv_dtype="fp",
 
     eng = DecodeEngine(params, cfg, slots=slots, chunk=chunk,
                        max_len=max_len, page_size=page_size,
-                       attn_kernel=attn_kernel, kv_dtype=kv_dtype,
-                       device=device, auto_start=False)
+                       attn_kernel=attn_kernel, device=device,
+                       auto_start=False, **engine_kw)
+    seeds = seeds or [0] * len(reqs)
     try:
-        streams = [eng.stream(p, m) for p, m in reqs]
+        streams = [eng.stream(p, m, seed=s)
+                   for (p, m), s in zip(reqs, seeds)]
         outs = [[] for _ in reqs]
         stamps = [[] for _ in reqs]
         errors = []
@@ -780,8 +807,8 @@ def serve(params, cfg, reqs, *, device, attn_kernel, kv_dtype="fp",
         for t in threads:
             t.join(timeout=600)
         if any(t.is_alive() for t in threads):
-            raise TimeoutError(f"{attn_kernel}/{kv_dtype} engine: streams "
-                               f"did not finish within 600 s")
+            raise TimeoutError(f"{attn_kernel} {engine_kw} engine: "
+                               f"streams did not finish within 600 s")
         wall = time.perf_counter() - t0
         if errors:
             raise errors[0]
@@ -842,7 +869,7 @@ def check_streams(name, toks, reqs, vocab):
                                  f"{t.shape} (want {(m,)})")
 
 
-def compare(name, got, ref, precision):
+def compare(name, got, ref, precision, what="kernel vs gather"):
     firsts = all(g[0] == r[0] for g, r in zip(got, ref))
     diverged = [i for i, (g, r) in enumerate(zip(got, ref))
                 if not np_equal(g, r)]
@@ -850,12 +877,217 @@ def compare(name, got, ref, precision):
     budget = MAX_DIVERGED[precision]
     if isinstance(budget, float):
         budget = int(budget * len(got))
-    log(f"{name}: kernel vs gather streams: {len(diverged)}/{len(got)} "
+    log(f"{name}: {what} streams: {len(diverged)}/{len(got)} "
         f"diverge (budget {budget}), first divergence at {where}, first "
         f"tokens all equal: {firsts}")
     if not firsts or len(diverged) > budget:
-        raise AssertionError(f"{name}: kernel engine outside the "
-                             f"divergence budget")
+        raise AssertionError(f"{name}: {what} outside the divergence "
+                             f"budget")
+
+
+#: Gumbel noise on the card against the CPU: ``log`` may round one ulp
+#: apart between devices, and an ulp of the inner ``-log(u)`` reaches the
+#: result as an absolute 2**-23 (``tests/test_torch_prng.py`` holds the
+#: CPU against ``jax.random`` to the same bound).
+GUMBEL_ULPS = 4
+PRNG_SEEDS = (0, 1, 2 ** 31 - 1, -5)
+SAMPLE_SHAPE = (16, 50304)          # the serving pool's logits
+
+
+def prng_phase(card: str) -> None:
+    """The threefry PRNG on the card: split, 32-bit draws and uniform
+    bit-equal to the CPU's, Gumbel noise within ``GUMBEL_ULPS``, for 16
+    lanes split from each of ``PRNG_SEEDS`` at the serving shape; then
+    the device and host time of one ``_sample_slots`` call there."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch._private import prng
+    from ray_tpu_torch.models import gpt_decode as gd
+
+    B, V = SAMPLE_SHAPE
+    for seed in PRNG_SEEDS:
+        root = torch.from_numpy(prng.PRNGKey(seed).astype(np.int64))
+        lanes = prng.split(root, B)                             # [16, 2]
+        out = {}
+        for dev in ("cpu", "cuda"):
+            k = lanes.to(dev)
+            out[dev] = [t.cpu() for t in (
+                prng.split(k), prng.random_bits(k, (V,)),
+                prng.uniform(k, (V,)), prng.gumbel(k, (V,)))]
+        for name, a, b in zip(("split", "bits", "uniform"),
+                              out["cuda"], out["cpu"]):
+            if not torch.equal(a, b):
+                raise AssertionError(f"prng {name}, seed {seed}: the card "
+                                     f"differs from the CPU")
+        g_cpu = out["cpu"][3].numpy()
+        ulps = np.abs(out["cuda"][3].numpy() - g_cpu) / (
+            np.spacing(np.abs(g_cpu)) + 2.0 ** -23)
+        log(f"prng seed {seed}: split/bits/uniform bit-equal card vs CPU "
+            f"at [{B}, {V}]; gumbel worst {ulps.max():.3g} "
+            f"(ulp + 2**-23) units, {(ulps > 0).mean():.4f} of values "
+            f"differ (bound {GUMBEL_ULPS})")
+        if ulps.max() > GUMBEL_ULPS:
+            raise AssertionError(f"prng gumbel, seed {seed}: card vs CPU "
+                                 f"beyond {GUMBEL_ULPS} units")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    logits = torch.randn(SAMPLE_SHAPE, device="cuda", generator=gen) * 3
+    keys = lanes.cuda()
+
+    def sample(_):
+        gd._sample_slots(logits, 0.8, keys)
+
+    dev_ms = device_ms(sample, 20)
+    greedy_ms = device_ms(lambda _: gd._sample_slots(logits), 20)
+    host = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sample(0)
+        host.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    log(f"_sample_slots [{B}, {V}] at T=0.8 [{card}]: device "
+        f"{dev_ms:.5g} ms per call (profiler); host {p50(host) * 1e3:.5g} "
+        f"ms per call (p50 of 10 enqueues on an idle queue); greedy "
+        f"argmax {greedy_ms:.5g} ms device")
+
+
+def sampling_phase(params, cfg, reqs, nano_args, card) -> None:
+    """Temperature 0.8 with per-request seeds. Nano f32: streams on the
+    card (paged, K1) against the CPU plain path, under the f32 budget.
+    GPT-2 small bf16, the 12-request mix: well-formed streams, K1 on
+    every decode step, the same seeds twice give the same streams."""
+    import torch
+
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    p_nano, nano, small, kw = nano_args
+    seeds = [3, 5, 2 ** 31 - 1, -7]
+    ref, *_ = serve(p_nano, nano, small, device=torch.device("cpu"),
+                    attn_kernel="gather", temperature=0.8, seeds=seeds,
+                    **kw)
+    got, *_ = serve(p_nano, nano, small, device=torch.device("cuda"),
+                    attn_kernel="cuda", temperature=0.8, seeds=seeds, **kw)
+    check_streams("nano T=0.8", got, small, nano.vocab_size)
+    compare("nano f32 T=0.8", got, ref, "f32",
+            what="card+kernel vs CPU+plain")
+    dev = torch.device("cuda")
+    seeds = [1000 + i for i in range(len(reqs))]
+    runs = []
+    for _ in range(2):
+        pa.launches = 0
+        toks, _, tpot, wall, st = serve(params, cfg, reqs, device=dev,
+                                        attn_kernel="cuda", temperature=0.8,
+                                        seeds=seeds)
+        check_streams("small bf16 T=0.8", toks, reqs, cfg.vocab_size)
+        want = cfg.n_layer * 8 * st["dispatches"]
+        if pa.launches != want or st["completed"] != len(reqs):
+            raise AssertionError(f"T=0.8 engine: launches {pa.launches} "
+                                 f"(want {want}), completed "
+                                 f"{st['completed']}")
+        runs.append(toks)
+        n = sum(map(len, toks))
+        log(f"small bf16 T=0.8 engine [{card}]: {n / wall:.2f} tok/s; "
+            f"TPOT p50 {p50(tpot) * 1e3:.3f} ms; K1 launches "
+            f"{pa.launches}")
+    if not all(np_equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError("T=0.8: the same seeds gave other streams")
+    log(f"small bf16 T=0.8: {len(reqs)} seeded streams identical in two "
+        f"runs")
+
+
+def flat_phase(params, cfg, reqs, greedy, nano_args, card) -> None:
+    """The flat pool (``paged=False``): GPT-2 small bf16 on the 12-request
+    mix against the paged kernel engine's streams under the bf16 budget;
+    nano f32 on the card equal to the CPU's."""
+    import torch
+
+    p_nano, nano, small, kw = nano_args
+    toks, _, tpot, wall, st = serve(params, cfg, reqs,
+                                    device=torch.device("cuda"),
+                                    paged=False)
+    check_streams("small bf16 flat", toks, reqs, cfg.vocab_size)
+    if st["paged"] or st["completed"] != len(reqs):
+        raise AssertionError(f"flat engine: {st}")
+    compare("small bf16 flat", toks, greedy, "bf16",
+            what="flat vs paged-kernel")
+    log(f"small bf16 flat engine [{card}]: "
+        f"{sum(map(len, toks)) / wall:.2f} tok/s; TPOT p50 "
+        f"{p50(tpot) * 1e3:.3f} ms")
+    kw = dict(kw, paged=False)
+    ref, *_ = serve(p_nano, nano, small, device=torch.device("cpu"), **kw)
+    got, *_ = serve(p_nano, nano, small, device=torch.device("cuda"), **kw)
+    if not all(np_equal(g, r) for g, r in zip(got, ref)):
+        raise AssertionError(f"nano f32 flat: card streams differ from "
+                             f"the CPU's: {got} vs {ref}")
+    log("nano f32 flat: card streams == CPU streams")
+
+
+def spec_phase(params, cfg, reqs, greedy, greedy_stats, f32_args,
+               nano_args, card) -> None:
+    """Speculative decoding, GPT-2 small, paged, K1 engine, ``draft_k=4``,
+    temperature 0, with each drafter: bf16 streams against the
+    non-speculative kernel engine's under the ``spec_bf16`` budget
+    (verify's arithmetic rounds differently from decode's, so the two
+    part at near-ties), acceptance, tokens per verify round, TPOT and
+    tok/s beside the plain engine's; the same at f32 (the f32 requests),
+    held to the f32 budget. Then a ``spec_threshold`` run that always
+    falls back to the chunk step (K1 from a spec engine), and nano f32
+    spec streams on the card equal to the CPU's."""
+    import torch
+
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    dev = torch.device("cuda")
+    g_tpot, g_tps = greedy_stats
+    for drafter in ("ngram", "model"):
+        toks, _, tpot, wall, st = serve(params, cfg, reqs, device=dev,
+                                        attn_kernel="cuda",
+                                        spec_decode=drafter, draft_k=4)
+        check_streams(f"small bf16 spec {drafter}", toks, reqs,
+                      cfg.vocab_size)
+        compare(f"small bf16 spec {drafter}", toks, greedy, "spec_bf16",
+                what="spec vs plain kernel engine")
+        sp = st["spec"]
+        log(f"small bf16 spec {drafter} [{card}]: acceptance "
+            f"{sp['acceptance_rate']:.4f}, tokens per lane per verify "
+            f"{sp['accepted_per_forward']:.4f}, {sp['rounds']} rounds; "
+            f"TPOT p50 {p50(tpot) * 1e3:.3f} ms (plain {g_tpot * 1e3:.3f}); "
+            f"{sum(map(len, toks)) / wall:.2f} tok/s (plain {g_tps:.2f})")
+    params32, cfg32, reqs32, plain32 = f32_args
+    for drafter in ("ngram", "model"):
+        toks, _, tpot, wall, st = serve(params32, cfg32, reqs32, device=dev,
+                                        attn_kernel="cuda",
+                                        spec_decode=drafter, draft_k=4)
+        check_streams(f"small f32 spec {drafter}", toks, reqs32,
+                      cfg.vocab_size)
+        compare(f"small f32 spec {drafter}", toks, plain32, "f32",
+                what="spec vs plain kernel engine")
+        log(f"small f32 spec {drafter} [{card}]: acceptance "
+            f"{st['spec']['acceptance_rate']:.4f}; TPOT p50 "
+            f"{p50(tpot) * 1e3:.3f} ms")
+    pa.launches = 0
+    toks, _, _, _, st = serve(params, cfg, reqs, device=dev,
+                              attn_kernel="cuda", spec_decode="ngram",
+                              spec_threshold=100.0)
+    sp = st["spec"]
+    if not sp["fallback_rounds"] or sp["rounds"] or not pa.launches:
+        raise AssertionError(f"spec_threshold fallback: {sp}, K1 launches "
+                             f"{pa.launches}")
+    compare("small bf16 spec fallback", toks, greedy, "bf16",
+            what="fallback vs plain kernel engine")
+    log(f"small bf16 spec fallback: {sp['fallback_rounds']} chunk rounds, "
+        f"K1 launches {pa.launches}")
+    p_nano, nano, small, kw = nano_args
+    for drafter in ("ngram", "model"):
+        ref, *_ = serve(p_nano, nano, small, device=torch.device("cpu"),
+                        attn_kernel="gather", spec_decode=drafter, **kw)
+        got, *_ = serve(p_nano, nano, small, device=dev, attn_kernel="cuda",
+                        spec_decode=drafter, **kw)
+        if not all(np_equal(g, r) for g, r in zip(got, ref)):
+            raise AssertionError(f"nano f32 spec {drafter}: card streams "
+                                 f"differ from the CPU's")
+    log("nano f32 spec (ngram, model): card streams == CPU streams")
 
 
 def np_equal(a, b):
@@ -895,6 +1127,7 @@ def main() -> int:
     # ---- 2-3. kernels vs plain, timings
     records = [kernel_phase("fp", card), kernel_phase("int8", card)]
     flash_records = flash_kernel_phase(card)
+    prng_phase(card)
 
     # ---- 4. small reference: nano f32, card+kernel vs CPU+plain
     nano = dataclasses.replace(gpt.CONFIGS["nano"], dtype=torch.float32)
@@ -913,6 +1146,7 @@ def main() -> int:
                              f"CPU+plain: {got} vs {ref}")
     log("nano f32 reference: card+kernel streams == CPU+plain streams "
         f"({len(small)} streams x 16 tokens)")
+    nano_args = (p_cpu, nano, small, kw)
 
     # ---- 5. the engine at GPT-2-small width
     cfg = gpt.CONFIGS["small"]
@@ -983,12 +1217,14 @@ def main() -> int:
     # engines must agree stream for stream at full width.
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     params32 = gpt.init_params(cfg32, seed=0, device="cuda")
+    plain32 = {}
     for kv in ("fp", "int8"):
         ref32, *_ = serve(params32, cfg32, reqs32, device=dev,
                           attn_kernel="gather", kv_dtype=kv)
         toks32, _, tpot32, wall32, _ = serve(
             params32, cfg32, reqs32, device=dev, attn_kernel="cuda",
             kv_dtype=kv)
+        plain32[kv] = toks32
         check_streams(f"small f32 {kv}", toks32, reqs32, cfg.vocab_size)
         compare(f"small f32 {kv}", toks32, ref32, "f32")
         log(f"small f32 {kv} engine [{card}]: "
@@ -996,6 +1232,12 @@ def main() -> int:
             f"{p50(tpot32) * 1e3:.3f} ms")
 
     profile_phase(params, cfg, reqs32[:6], card)
+
+    # ---- 6. sampling at T > 0, the flat pool, speculative decoding
+    sampling_phase(params, cfg, reqs, nano_args, card)
+    flat_phase(params, cfg, reqs, toks, nano_args, card)
+    spec_phase(params, cfg, reqs, toks, (p50(tpot), n_tok / wall),
+               (params32, cfg32, reqs32, plain32["fp"]), nano_args, card)
     del params, params32
     torch.cuda.empty_cache()
 

@@ -1,8 +1,9 @@
 """Device resolution and the matmul precision the port relies on.
 
 Every entry point (``DecodeEngine``, ``init_params``, ``params_from_numpy``,
-``init_paged_cache``, ``make_train_step``) takes ``device=None`` and
-resolves it here: no
+``init_paged_cache``, ``init_cache``, ``init_slot_cache``, ``generate``,
+``generate_chunked``, ``ModelDrafter``, ``make_train_step``) takes
+``device=None`` and resolves it here: no
 argument means the card, and a missing card is an error. The port never
 carries on quietly on the CPU; tests ask for it with ``device="cpu"``.
 """

@@ -1,48 +1,67 @@
-"""Paged continuous-batching decode for the GPT model: the port of the
-paged half of ``ray_tpu/models/gpt_decode.py``.
+"""KV-cache decoding for the GPT model: the port of
+``ray_tpu/models/gpt_decode.py`` (flat pool, paged pool, speculative
+verify).
 
 The device half of :class:`~ray_tpu_torch.serve.engine.DecodeEngine`:
 
-- a pool of fixed-size KV pages ``[L, n_pages, page_size, H, hd]``
-  (:func:`init_paged_cache`), fp in the compute dtype or int8 codes with
-  one f32 scale per (layer, page, head) per side;
-- each slot owns a page-table row (``[max_pages]`` int32, padded with
-  :data:`PT_SENTINEL`) that maps its virtual sequence onto pages;
-- :func:`prefill_into_slot_paged` runs a prompt suffix over the cached
-  prefix read through the page table, with the copy-on-write fork of a
-  mid-page prefix fused in, and returns the first (greedy) token;
-- :func:`decode_chunk_slots_paged` runs k greedy decode steps over every
-  slot; attention goes through :func:`paged_attention`, i.e. the CUDA
-  kernel (``attn_kernel="cuda"``) or the plain gather version.
+- **Flat pools** (``gpt_decode.py:292-852``): :func:`init_cache` /
+  :func:`prefill` / :func:`decode_step` / :func:`decode_chunk` drive one
+  batch at a shared depth (:func:`generate`, :func:`generate_chunked`);
+  :func:`init_slot_cache` reserves ``max_len`` positions per slot with a
+  per-slot ``pos``, filled by :func:`prefill_into_slot` and advanced by
+  :func:`decode_chunk_slots`.
+- **Paged pools**: fixed-size KV pages ``[L, n_pages, page_size, H,
+  hd]`` (:func:`init_paged_cache`), fp in the compute dtype or int8
+  codes with one f32 scale per (layer, page, head) per side; each slot
+  owns a page-table row (``[max_pages]`` int32, padded with
+  :data:`PT_SENTINEL`). :func:`prefill_into_slot_paged` runs a prompt
+  suffix over the cached prefix, with the copy-on-write fork of a
+  mid-page prefix fused in; :func:`decode_chunk_slots_paged` runs k
+  decode steps over every slot, attention through
+  :func:`paged_attention` (the CUDA kernel, ``attn_kernel="cuda"``, or
+  the plain gather version).
+- **Speculative verify** (``gpt_decode.py:1549-1780``):
+  :func:`verify_chunk_slots` / :func:`verify_chunk_slots_paged` score a
+  drafter's k proposals per slot in one batched forward and commit the
+  accepted prefix plus a correction/bonus token (:func:`_spec_accept`).
+- **Sampling**: greedy (first-index argmax) at temperature 0, else
+  ``categorical(sub, logits / temperature)`` with a per-slot key chain
+  split exactly like the reference's, through the port's threefry
+  (:mod:`ray_tpu_torch._private.prng`), so seeded streams are the
+  reference's token for token. Host PRNG lanes are ``np.uint32 [slots,
+  2]``; a chunk's lanes come back in the same transfer as its tokens.
 
 How the port differs from the reference, and why:
 
 - **In-place pools.** The pool tensors are updated in place; that is
   what the reference's donated jit arguments achieve on the TPU
   (``gpt_decode.py:1455``, ``:1495``). Functions return only what the
-  host needs.
+  host needs. ``lax.scan`` is a Python loop; the ``jit_*`` wrappers have
+  no counterpart.
 - **Masked writes are decided on the host.** JAX scatters with
   ``mode="drop"`` and uses ``PT_SENTINEL`` as a discard target; torch has
   no drop mode and that index raises. Every write target depends only on
   host data the engine already holds (page table, active mask, the
-  slot's position), so the index math runs in numpy and a dropped write
-  is simply never issued. The pool itself never leaves the device.
+  slot's position, read once per chunk), so the index math runs in
+  numpy and a dropped write is simply never issued. The pool itself
+  never leaves the device.
 - **Clamped reads are explicit.** Where JAX clamps an out-of-range gather
   or ``dynamic_slice`` start, the port clamps with ``clamp``/``np.clip``.
 - **f32 where the reference accumulates in f32.** Every product feeding
   a softmax or the logits is formed from operands upcast to f32.
-- **One host transfer per chunk** for tokens and done flags (and one for
-  the first token of a prefill), as the reference's ``np.asarray`` syncs.
-- **Greedy only.** Sampling at temperature > 0 needs the reference's
-  threefry PRNG stream for parity and is a later slice.
+- **One host transfer per chunk** for tokens, done flags and PRNG lanes
+  (and one for the first token of a prefill), as the reference's
+  ``np.asarray`` syncs.
+- Tensor parallelism (``shard_params``, ``_tp_*``) is a later slice.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Callable, Dict, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .._private import prng
 from .._private.device import DeviceLike, resolve_device
 from ..ops.paged_attention import (deq_page as _deq_page,
                                    paged_attention_cuda,
@@ -100,12 +119,406 @@ def _ffn(x, p, cfg: GPTConfig):
     return x + _mm(h, p["w2"], cfg.dtype)
 
 
-def _sample_slots(logits: torch.Tensor) -> torch.Tensor:
-    """Greedy per-slot sampling: first index of the maximum, as
-    ``jnp.argmax``."""
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+def _tokens(tokens, device: torch.device) -> torch.Tensor:
+    """Token ids, a host array or a tensor, as a tensor on ``device``."""
+    if isinstance(tokens, torch.Tensor):
+        return tokens.to(device)
+    return _to_device(np.asarray(tokens, np.int64), device)
 
 
+def _keys(rng, device: torch.device) -> torch.Tensor:
+    """Host PRNG words (``np.uint32 [..., 2]``, as the reference's host
+    lanes) or a key tensor → int64 key tensor on ``device``."""
+    if isinstance(rng, torch.Tensor):
+        return rng.to(device=device, dtype=torch.int64)
+    return _to_device(np.asarray(rng, np.uint32).astype(np.int64), device)
+
+
+def _to_host(*tensors: torch.Tensor):
+    """Several small device tensors → host int64 arrays in ONE
+    transfer."""
+    flat = torch.cat([t.reshape(-1).to(torch.int64) for t in tensors])
+    flat = flat.cpu().numpy()
+    out, o = [], 0
+    for t in tensors:
+        out.append(flat[o:o + t.numel()].reshape(t.shape))
+        o += t.numel()
+    return out
+
+
+def _sample(logits: torch.Tensor, temperature: float, key: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One sampling decision over ``logits [B, vocab]`` with ONE key
+    (``gpt_decode.py:443``): greedy iff ``temperature == 0``, else the
+    key splits into (carry, sub) and ``sub`` draws one Gumbel block over
+    the whole batch. Returns ``(token [B] int32, key')``."""
+    if temperature > 0.0:
+        key, sub = prng.split(key).unbind(0)
+        token = prng.categorical(sub, logits / temperature)
+    else:
+        token = torch.argmax(logits, dim=-1)
+    return token.to(torch.int32), key
+
+
+def _sample_slots(logits: torch.Tensor, temperature: float = 0.0,
+                  keys: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Per-slot sampling with independent PRNG lanes
+    (``gpt_decode.py:737``): each slot's key ``keys [B, 2]`` splits
+    exactly like :func:`_sample`'s and draws from ``categorical(sub,
+    logits[b] / temperature)``, so a slot's stream depends only on its
+    seed. At temperature 0 the first-index argmax, keys unchanged."""
+    if temperature > 0.0:
+        keys, subs = prng.split(keys).unbind(1)
+        token = prng.categorical(subs, logits / temperature)
+    else:
+        token = torch.argmax(logits, dim=-1)
+    return token.to(torch.int32), keys
+
+
+def _attend(q: torch.Tensor, kk: torch.Tensor, vv: torch.Tensor, valid,
+            scale: float) -> torch.Tensor:
+    """Masked softmax attention of ``q [B, Sq, H, hd]`` over ``kk``/``vv
+    [B, Sk, H, hd]`` (``valid`` broadcasts to ``[B, H, Sq, Sk]``): f32
+    logits, probs cast to the compute dtype, f32 accumulation, one cast
+    — the reference's ``preferred_element_type=f32`` einsums. Returns
+    ``[B, Sq, H * hd]``."""
+    B, Sq = q.shape[:2]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk.float()) * scale
+    logits = torch.where(valid, logits, -1e30)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.float(), vv.float()
+                        ).to(q.dtype).reshape(B, Sq, -1)
+
+
+# --------------------------------------------------------------- flat pool
+def init_cache(cfg: GPTConfig, batch: int, max_len: int,
+               device: DeviceLike = None) -> Cache:
+    """Zeroed flat cache for one batch at a shared depth
+    (``gpt_decode.py:292``): ``k``/``v`` ``[L, batch, max_len, H, hd]``
+    in the compute dtype and a scalar int32 ``pos``."""
+    dev = resolve_device(device)
+    shape = (cfg.n_layer, batch, max_len, cfg.n_head, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+            "pos": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def init_slot_cache(cfg: GPTConfig, slots: int, max_len: int,
+                    device: DeviceLike = None) -> Cache:
+    """Zeroed flat slot pool (``gpt_decode.py:619``): ``max_len``
+    positions reserved per slot and a per-slot ``pos [slots]``, so every
+    slot decodes at its own depth."""
+    cache = init_cache(cfg, slots, max_len, device)
+    cache["pos"] = torch.zeros(slots, dtype=torch.int32,
+                               device=cache["k"].device)
+    return cache
+
+
+def _embed(params: Params, tokens: torch.Tensor, positions: torch.Tensor,
+           cfg: GPTConfig) -> torch.Tensor:
+    """Token plus (clamped) position embeddings in the compute dtype."""
+    x = params["embed"].to(cfg.dtype)[tokens.long()]
+    return x + params["pos_embed"][positions.long().clamp(
+        0, cfg.max_seq - 1)].to(cfg.dtype)
+
+
+def prefill(params: Params, tokens, cfg: GPTConfig, cache: Cache
+            ) -> torch.Tensor:
+    """Run the prompt ``tokens [B, S]`` once, filling positions ``[0,
+    S)`` of the flat cache and setting ``pos = S`` (``gpt_decode.py:332``).
+    Returns the last position's f32 logits ``[B, vocab]``."""
+    dev = cache["k"].device
+    tok = _tokens(tokens, dev)
+    B, S = tok.shape
+    x = _embed(params, tok, torch.arange(S, device=dev)[None], cfg)
+    mask = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
+    scale = softmax_scale(cfg.head_dim)
+    for i in range(cfg.n_layer):
+        p = layer_params(params, i)
+        q, k, v = _block_kv(x, p, cfg)
+        x = x + _mm(_attend(q, k, v, mask, scale), p["wo"], cfg.dtype)
+        x = _ffn(x, p, cfg)
+        cache["k"][i, :, :S] = k
+        cache["v"][i, :, :S] = v
+    cache["pos"].fill_(S)
+    x = _rmsnorm(x, params["ln_f_scale"])
+    return _project_vocab(x[:, -1:], params["embed"], cfg)[:, 0]
+
+
+def _decode_step(params: Params, cache: Cache, token: torch.Tensor,
+                 cfg: GPTConfig, pos: int) -> torch.Tensor:
+    """:func:`decode_step` at the host-known depth ``pos``."""
+    dev = cache["k"].device
+    max_len = cache["k"].shape[2]
+    # dynamic_update_slice clamps its start: a write past the end lands
+    # on the last position (only tokens the host discards get there).
+    w = min(pos, max_len - 1)
+    x = _embed(params, token[:, None],
+               torch.full((1, 1), pos, device=dev), cfg)
+    valid = torch.arange(max_len, device=dev) <= pos
+    scale = softmax_scale(cfg.head_dim)
+    for i in range(cfg.n_layer):
+        p = layer_params(params, i)
+        q, k, v = _block_kv(x, p, cfg)                  # [B, 1, H, hd]
+        kc, vc = cache["k"][i], cache["v"][i]
+        kc[:, w] = k[:, 0]
+        vc[:, w] = v[:, 0]
+        x = x + _mm(_attend(q, kc, vc, valid, scale), p["wo"], cfg.dtype)
+        x = _ffn(x, p, cfg)
+    cache["pos"] += 1
+    x = _rmsnorm(x, params["ln_f_scale"])
+    return _project_vocab(x, params["embed"], cfg)[:, 0]
+
+
+def decode_step(params: Params, cache: Cache, token,
+                cfg: GPTConfig) -> torch.Tensor:
+    """One autoregressive step over a flat cache (``gpt_decode.py:374``):
+    ``token [B]`` is written at ``pos`` and attends over ``<= pos``;
+    ``pos`` advances by one. Returns f32 logits ``[B, vocab]``."""
+    return _decode_step(params, cache, _tokens(token, cache["k"].device),
+                        cfg, int(cache["pos"]))
+
+
+def _on_device(params: Params, device: DeviceLike) -> Params:
+    dev = resolve_device(device)
+    return {k: v.to(dev) for k, v in params.items()}
+
+
+def generate(params: Params, prompt, cfg: GPTConfig, max_new_tokens: int,
+             max_len: int = 0, temperature: float = 0.0, rng=None, *,
+             device: DeviceLike = None) -> Iterator[np.ndarray]:
+    """Greedy/sampled generation over a flat cache
+    (``gpt_decode.py:413``); yields one host ``[B]`` int32 token array
+    per step. ``rng`` is a key (``np.uint32 [2]``), by default
+    ``PRNGKey(0)``, split once per sampled step."""
+    params = _on_device(params, device)
+    dev = params["embed"].device
+    B, S = np.shape(prompt)
+    max_len = max_len or cfg.max_seq
+    if S + max_new_tokens > max_len:
+        raise ValueError(
+            f"prompt ({S}) + max_new_tokens ({max_new_tokens}) exceeds "
+            f"cache length {max_len}")
+    key = _keys(prng.PRNGKey(0) if rng is None else rng, dev)
+    cache = init_cache(cfg, B, max_len, dev)
+    logits = prefill(params, prompt, cfg, cache)
+    for i in range(max_new_tokens):
+        token, key = _sample(logits, temperature, key)
+        yield token.cpu().numpy()
+        if i + 1 < max_new_tokens:
+            logits = _decode_step(params, cache, token, cfg, S + i)
+
+
+def decode_chunk(params: Params, cache: Cache, token, rng=None, *,
+                 cfg: GPTConfig, k: int, temperature: float = 0.0,
+                 eos_token: int = -1):
+    """k autoregressive steps over a flat cache (``gpt_decode.py:454``),
+    the reference's ``lax.scan`` as a loop with no host sync inside.
+    ``token [B]`` is the last emitted token. Returns device tensors
+    ``(tokens [B, k] int32, done [B] bool, rng')``; finished lanes
+    (``eos_token`` sampled or fed in) mask-and-carry."""
+    dev = cache["k"].device
+    tok = _tokens(token, dev)
+    key = _keys(prng.PRNGKey(0) if rng is None else rng, dev)
+    pos = int(cache["pos"])
+    done = (tok == eos_token) if eos_token >= 0 else \
+        torch.zeros(tok.shape, dtype=torch.bool, device=dev)
+    toks = []
+    for j in range(k):
+        logits = _decode_step(params, cache, tok, cfg, pos + j)
+        nxt, key = _sample(logits, temperature, key)
+        if eos_token >= 0:
+            nxt = torch.where(done, eos_token, nxt).to(torch.int32)
+            done = done | (nxt == eos_token)
+        toks.append(nxt)
+        tok = nxt
+    return torch.stack(toks, dim=1), done, key
+
+
+def decode_until(step: Callable, params: Params, cache: Cache, token,
+                 max_new: int, *, eos_token: int = -1, rng=None
+                 ) -> Iterator[np.ndarray]:
+    """Drive a chunk ``step(params, cache, token, rng) -> (tokens, done,
+    rng')`` (e.g. :func:`decode_chunk` with its knobs bound) until
+    ``max_new`` tokens are out or every stream sampled ``eos_token``
+    (``gpt_decode.py:539``). Yields one host int32 ``[B, j]`` slice per
+    chunk, cut at the first position where every lane is done."""
+    dev = cache["k"].device
+    rng = _keys(prng.PRNGKey(0) if rng is None else rng, dev)
+    done = np.zeros((np.shape(token)[0],), bool)
+    if eos_token >= 0:
+        done |= np.asarray(token.cpu() if isinstance(token, torch.Tensor)
+                           else token) == eos_token
+    remaining = max_new
+    while remaining > 0 and not done.all():
+        toks_dev, _, rng = step(params, cache, token, rng)
+        toks = toks_dev.cpu().numpy()          # ONE transfer per chunk
+        j = min(toks.shape[1], remaining)
+        if eos_token >= 0:
+            cum = np.logical_or.accumulate(toks == eos_token, axis=1) \
+                | done[:, None]
+            all_done = np.all(cum, axis=0)
+            if all_done.any():
+                j = min(j, int(all_done.argmax()) + 1)
+            done = cum[:, j - 1].copy()
+        yield toks[:, :j]
+        remaining -= j
+        token = toks_dev[:, -1]                # stays on the device
+
+
+def generate_chunked(params: Params, prompt, cfg: GPTConfig,
+                     max_new_tokens: int, *, chunk: int = 8,
+                     max_len: int = 0, temperature: float = 0.0, rng=None,
+                     eos_token: int = -1, device: DeviceLike = None
+                     ) -> Iterator[np.ndarray]:
+    """Chunked twin of :func:`generate` (``gpt_decode.py:573``): yields
+    host int32 ``[B, j]`` slices, first the prefill's token alone, then
+    one per k-step chunk. The key chain matches :func:`generate`'s."""
+    params = _on_device(params, device)
+    dev = params["embed"].device
+    B, S = np.shape(prompt)
+    max_len = max_len or cfg.max_seq
+    if max_new_tokens <= 0:
+        return
+    if S + max_new_tokens > max_len:
+        raise ValueError(
+            f"prompt ({S}) + max_new_tokens ({max_new_tokens}) exceeds "
+            f"cache length {max_len}")
+    cache = init_cache(cfg, B, max_len, dev)
+    logits = prefill(params, prompt, cfg, cache)
+    key = _keys(prng.PRNGKey(0) if rng is None else rng, dev)
+    token, key = _sample(logits, temperature, key)
+    first = token.cpu().numpy()[:, None]
+    yield first
+    if max_new_tokens <= 1 or (eos_token >= 0
+                               and (first == eos_token).all()):
+        return
+
+    def step(params, cache, token, rng):
+        return decode_chunk(params, cache, token, rng, cfg=cfg, k=chunk,
+                            temperature=temperature, eos_token=eos_token)
+
+    yield from decode_until(step, params, cache, token, max_new_tokens - 1,
+                            eos_token=eos_token, rng=key)
+
+
+def prefill_into_slot(params: Params, cache: Cache, tokens, length: int,
+                      slot: int, rng, *, cfg: GPTConfig,
+                      temperature: float = 0.0) -> Tuple[int, np.ndarray]:
+    """Run one right-padded prompt ``tokens [1, S_bucket]`` (true length
+    ``length``) and write its K/V into slot ``slot`` of a flat pool
+    (``gpt_decode.py:637``); ``pos[slot] = length``. The first token is
+    sampled from position ``length - 1`` with the slot's key ``rng``
+    (``np.uint32 [2]``). Returns ``(first_token, rng')`` in one
+    transfer. Pad positions' K/V land beyond ``pos`` and are overwritten
+    before any query reads them."""
+    dev = cache["k"].device
+    tokens = np.asarray(tokens, np.int64).reshape(1, -1)
+    S = tokens.shape[1]
+    length, slot = int(length), int(slot)
+    x = _embed(params, _to_device(tokens, dev),
+               torch.arange(S, device=dev)[None], cfg)
+    mask = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
+    scale = softmax_scale(cfg.head_dim)
+    for i in range(cfg.n_layer):
+        p = layer_params(params, i)
+        q, k, v = _block_kv(x, p, cfg)
+        x = x + _mm(_attend(q, k, v, mask, scale), p["wo"], cfg.dtype)
+        x = _ffn(x, p, cfg)
+        cache["k"][i, slot, :S] = k[0]
+        cache["v"][i, slot, :S] = v[0]
+    last = min(max(length - 1, 0), S - 1)
+    x = _rmsnorm(x[:, last:last + 1], params["ln_f_scale"])
+    logits = _project_vocab(x, params["embed"], cfg)[:, 0]
+    token, key = _sample(logits, temperature, _keys(rng, dev))
+    cache["pos"][slot] = length
+    tok, key = _to_host(token, key)
+    return int(tok[0]), key.astype(np.uint32)
+
+
+def _slot_decode_step(params: Params, cache: Cache, token: torch.Tensor,
+                      active: np.ndarray, pos: np.ndarray,
+                      cfg: GPTConfig) -> torch.Tensor:
+    """One decode step over a flat slot pool (``gpt_decode.py:691``):
+    each active slot writes its K/V at its own ``pos[b]`` (host mirror of
+    ``cache["pos"]``; a write at ``max_len`` or beyond is dropped) and
+    attends over ``<= pos[b]``; inactive slots neither write nor advance.
+    Returns f32 logits ``[B, vocab]``."""
+    dev = cache["k"].device
+    max_len = cache["k"].shape[2]
+    pos_d = cache["pos"]
+    x = _embed(params, token[:, None], pos_d[:, None], cfg)
+    valid = (torch.arange(max_len, device=dev)[None, :]
+             <= pos_d[:, None].long())[:, None, None, :]
+    rows = np.flatnonzero(active & (pos < max_len))
+    w = _to_device(np.stack([rows, pos[rows]]), dev)
+    scale = softmax_scale(cfg.head_dim)
+    for i in range(cfg.n_layer):
+        p = layer_params(params, i)
+        q, k, v = _block_kv(x, p, cfg)                  # [B, 1, H, hd]
+        kc, vc = cache["k"][i], cache["v"][i]
+        kc[w[0], w[1]] = k[w[0], 0]
+        vc[w[0], w[1]] = v[w[0], 0]
+        x = x + _mm(_attend(q, kc, vc, valid, scale), p["wo"], cfg.dtype)
+        x = _ffn(x, p, cfg)
+    pos_d += _to_device(active.astype(np.int32), dev)
+    x = _rmsnorm(x, params["ln_f_scale"])
+    return _project_vocab(x, params["embed"], cfg)[:, 0]
+
+
+def _chunk_slots(step: Callable, cache: Cache, token, rngs, active, *,
+                 k: int, temperature: float, eos_token: int):
+    """The k-step loop shared by the flat and paged slot pools:
+    ``step(tok, pos) -> logits`` runs one decode step; sampling, EOS
+    mask-and-carry and the PRNG lanes are the same for both. Returns
+    host ``(tokens [B, k] int32, done [B] bool, rngs' [B, 2] uint32)``
+    in ONE transfer."""
+    dev = cache["k"].device
+    active = np.asarray(active, bool)
+    # At a chunk boundary the device queue is already drained (the last
+    # chunk's tokens were read), so this read costs no stall.
+    pos = cache["pos"].cpu().numpy().astype(np.int64)
+    tok = _to_device(np.asarray(token, np.int32), dev)
+    keys = _keys(rngs, dev)
+    act_d = _to_device(active, dev)
+    done = (act_d & (tok == eos_token)) if eos_token >= 0 else \
+        torch.zeros_like(act_d)
+    toks = []
+    for _ in range(k):
+        logits = step(tok, pos)
+        nxt, keys = _sample_slots(logits, temperature, keys)
+        if eos_token >= 0:
+            nxt = torch.where(done, eos_token, nxt).to(torch.int32)
+            done = done | (act_d & (nxt == eos_token))
+        toks.append(nxt)
+        tok = nxt
+        pos = pos + active
+    toks, done, keys = _to_host(torch.stack(toks, dim=1), done, keys)
+    return (toks.astype(np.int32), done.astype(bool),
+            keys.astype(np.uint32))
+
+
+def decode_chunk_slots(params: Params, cache: Cache, token, rngs, active,
+                       *, cfg: GPTConfig, k: int, temperature: float = 0.0,
+                       eos_token: int = -1
+                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """k decode steps over a flat slot pool (``gpt_decode.py:752``),
+    decoding only slots where ``active`` is set. ``token [B]`` (each
+    slot's last token), ``rngs [B, 2]`` (its PRNG lane, ``np.uint32``)
+    and ``active [B]`` are host arrays. Returns host ``(tokens [B, k],
+    done [B], rngs')`` in ONE transfer; rows of inactive slots are
+    garbage. EOS lanes mask-and-carry."""
+    active = np.asarray(active, bool)
+
+    def step(tok, pos):
+        return _slot_decode_step(params, cache, tok, active, pos, cfg)
+
+    return _chunk_slots(step, cache, token, rngs, active, k=k,
+                        temperature=temperature, eos_token=eos_token)
+
+
+# -------------------------------------------------------------- paged pool
 def kv_bytes_per_page(cfg: GPTConfig, page_size: int,
                       kv_dtype: str = "fp") -> int:
     """Device bytes ONE physical page costs across all layers, K and V
@@ -249,11 +662,15 @@ def paged_attention(q, kc, vc, pt, pos, *, page_size: int,
 
 def prefill_into_slot_paged(params: Params, cache: Cache, tokens,
                             length: int, hist_len: int, pt_row,
-                            cow_src: int, slot: int, *, cfg: GPTConfig,
-                            page_size: int, kv_dtype: str = "fp") -> int:
+                            cow_src: int, slot: int, rng, *,
+                            cfg: GPTConfig, page_size: int,
+                            temperature: float = 0.0,
+                            kv_dtype: str = "fp") -> Tuple[int, np.ndarray]:
     """Prefill one prompt **suffix** into its pages, fused with the
-    optional copy-on-write fork; returns the greedy first token
-    (``gpt_decode.py:1199``).
+    optional copy-on-write fork and the first-token sample
+    (``gpt_decode.py:1199``); returns ``(first_token, rng')`` in one
+    transfer, the token sampled with the slot's key ``rng``
+    (``np.uint32 [2]``) as :func:`_sample` does.
 
     ``tokens [1, S_bucket]`` is the prompt minus its cached prefix,
     right-padded; ``length`` its true length; ``hist_len`` the cached
@@ -353,9 +770,11 @@ def prefill_into_slot_paged(params: Params, cache: Cache, tokens,
     x = _rmsnorm(x, params["ln_f_scale"])
     last = min(max(length - 1, 0), S - 1)
     logits = _project_vocab(x[:, last:last + 1], params["embed"], cfg)
+    token, key = _sample(logits[:, 0], temperature, _keys(rng, dev))
     cache["pos"][slot] = hist_len + length
-    # One transfer per admission: the TTFT token.
-    return int(_sample_slots(logits[:, 0])[0])
+    # One transfer per admission: the TTFT token and the slot's key.
+    tok, key = _to_host(token, key)
+    return int(tok[0]), key.astype(np.uint32)
 
 
 def _slot_decode_step_paged(params: Params, cache: Cache,
@@ -417,44 +836,208 @@ def _slot_decode_step_paged(params: Params, cache: Cache,
     return _project_vocab(x, params["embed"], cfg)[:, 0]
 
 
-def decode_chunk_slots_paged(params: Params, cache: Cache, token, active,
-                             pt, *, cfg: GPTConfig, k: int, page_size: int,
+def decode_chunk_slots_paged(params: Params, cache: Cache, token, rngs,
+                             active, pt, *, cfg: GPTConfig, k: int,
+                             page_size: int, temperature: float = 0.0,
                              eos_token: int = -1, kv_dtype: str = "fp",
                              attn_kernel: str = "gather"
-                             ) -> Tuple[np.ndarray, np.ndarray]:
-    """k greedy decode steps over the whole pool, the page table held
+                             ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """k decode steps over the whole paged pool, the page table held
     constant through the chunk (``gpt_decode.py:1405``; the engine maps
     pages covering ``pos + k`` first, or parks the slot out of
-    ``active``). The reference's ``lax.scan`` is a Python loop; the pool
-    is updated in place.
+    ``active``). Sampling, PRNG lanes and EOS mask-and-carry are the
+    flat pool's (:func:`decode_chunk_slots`).
 
-    ``token [B]`` (each slot's last token), ``active [B]`` and ``pt [B,
-    max_pages]`` are host arrays. EOS lanes mask-and-carry: once a lane
-    samples ``eos_token`` it keeps emitting it. Returns host arrays
-    ``(tokens [B, k] int32, done [B] bool)``, fetched in ONE transfer;
-    rows of inactive slots are garbage."""
-    dev = cache["k"].device
+    ``token [B]`` (each slot's last token), ``rngs [B, 2]`` (``np.uint32``
+    PRNG lanes), ``active [B]`` and ``pt [B, max_pages]`` are host
+    arrays. Returns host ``(tokens [B, k] int32, done [B] bool, rngs')``,
+    fetched in ONE transfer; rows of inactive slots are garbage."""
     active = np.asarray(active, bool)
     pt = np.asarray(pt, np.int32)
-    # At a chunk boundary the device queue is already drained (the last
-    # chunk's tokens were read), so this read costs no stall.
+
+    def step(tok, pos):
+        return _slot_decode_step_paged(params, cache, tok, active, pt, pos,
+                                       cfg, page_size, kv_dtype,
+                                       attn_kernel)
+
+    return _chunk_slots(step, cache, token, rngs, active, k=k,
+                        temperature=temperature, eos_token=eos_token)
+
+
+# ------------------------------------------------------ speculative verify
+def _spec_accept(logits: torch.Tensor, draft: torch.Tensor,
+                 keys: torch.Tensor, temperature: float, k: int):
+    """Acceptance and correction for the verify step
+    (``gpt_decode.py:1549``). ``logits [B, k+1, vocab]`` are the
+    target's rows over ``[last, d_1..d_k]`` (row i scores ``d_{i+1}``,
+    row k samples the bonus); ``draft [B, k]`` the proposals; ``keys
+    [B, 2]`` the slots' PRNG lanes.
+
+    - temperature 0: ``d_{i+1}`` is accepted iff it is row i's argmax;
+      the correction/bonus is ``argmax(row_{n_acc})``, so the committed
+      tokens are the greedy target stream for any drafter.
+    - temperature > 0: ``d`` is accepted with probability ``p_t(d)``
+      (drafts are point proposals); a rejection samples the residual,
+      ``p_t`` with ``d``'s mass removed; full acceptance samples the
+      bonus from row k. Each slot's key splits into ``k + 2`` (carry
+      plus one per row), each row's key into (uniform, sample): the
+      consumption is static, so a seeded stream replays through any
+      acceptance pattern.
+
+    Returns device tensors ``(committed [B, k+1] int32, n_acc [B] int32,
+    keys')``: ``committed[b, :n_acc[b]]`` are accepted drafts,
+    ``committed[b, n_acc[b]]`` the correction/bonus, later entries
+    repeat it."""
+    draft = draft.long()
+    am = torch.argmax(logits, dim=-1)                          # [B, k+1]
+    if temperature <= 0.0:
+        acc = am[:, :k] == draft
+        samples = am
+    else:
+        ks = prng.split(keys, k + 2)                           # [B, k+2, 2]
+        keys = ks[:, 0]
+        ukeys, skeys = prng.split(ks[:, 1:]).unbind(2)         # [B, k+1, 2]
+        scaled = logits / temperature
+        p = torch.softmax(scaled[:, :k], dim=-1)
+        pd = p.gather(2, draft[..., None])[..., 0]             # [B, k]
+        acc = prng.uniform(ukeys[:, :k]) < pd
+        residual = scaled[:, :k].scatter(2, draft[..., None], -1e30)
+        corr = prng.categorical(skeys[:, :k], residual)        # [B, k]
+        bonus = prng.categorical(skeys[:, k], scaled[:, k])    # [B]
+        samples = torch.cat([corr, bonus[:, None]], dim=1)
+    n_acc = torch.cumprod(acc.long(), dim=1).sum(dim=1)
+    c = samples.gather(1, n_acc[:, None])                      # [B, 1]
+    committed = torch.where(
+        torch.arange(k + 1, device=logits.device)[None, :] < n_acc[:, None],
+        torch.cat([draft, c], dim=1), c)
+    return committed.to(torch.int32), n_acc.to(torch.int32), keys
+
+
+def _verify(params: Params, cache: Cache, token, draft, rngs, active, *,
+            cfg: GPTConfig, k: int, temperature: float, plan: Callable):
+    """The verify step shared by both pools: feeds ``[last, d_1..d_k]``
+    at each slot's ``pos..pos+k`` (host ``pos``, read once at the round
+    boundary), runs the layers with ``plan(active, pos, positions,
+    pos_d) -> attend(layer, q, k, v)`` writing and attending the pool,
+    scores all k+1 rows (:func:`_spec_accept`), advances ``pos`` by ``1 +
+    n_acc`` on active slots, and returns host ``(committed, n_acc,
+    rngs')`` in ONE transfer."""
+    dev = cache["k"].device
+    active = np.asarray(active, bool)
     pos = cache["pos"].cpu().numpy().astype(np.int64)
-    tok = _to_device(np.asarray(token, np.int32), dev)
-    act_d = _to_device(active, dev)
-    done = (act_d & (tok == eos_token)) if eos_token >= 0 else \
-        torch.zeros_like(act_d)
-    toks = []
-    for _ in range(k):
-        logits = _slot_decode_step_paged(params, cache, tok, active, pt,
-                                         pos, cfg, page_size, kv_dtype,
-                                         attn_kernel)
-        nxt = _sample_slots(logits)
-        if eos_token >= 0:
-            nxt = torch.where(done, eos_token, nxt).to(torch.int32)
-            done = done | (act_d & (nxt == eos_token))
-        toks.append(nxt)
-        tok = nxt
-        pos = pos + active
-    out = torch.cat([torch.stack(toks, dim=1),
-                     done[:, None].to(torch.int32)], dim=1).cpu().numpy()
-    return out[:, :k].copy(), out[:, k].astype(bool)
+    draft = np.asarray(draft, np.int32)
+    seq = np.concatenate([np.asarray(token, np.int32)[:, None], draft], 1)
+    positions = pos[:, None] + np.arange(k + 1)[None, :]          # [B, S]
+    seq_d, pos_d = _to_device(np.stack([seq, positions]), dev)
+    x = _embed(params, seq_d, pos_d, cfg)
+    attend = plan(active, pos, positions, pos_d)
+    for i in range(cfg.n_layer):
+        p = layer_params(params, i)
+        q, kk, vv = _block_kv(x, p, cfg)                # [B, S, H, hd]
+        x = x + _mm(attend(i, q, kk, vv), p["wo"], cfg.dtype)
+        x = _ffn(x, p, cfg)
+    x = _rmsnorm(x, params["ln_f_scale"])
+    logits = _project_vocab(x, params["embed"], cfg)           # [B, S, V]
+    committed, n_acc, keys = _spec_accept(
+        logits, _to_device(draft, dev), _keys(rngs, dev), temperature, k)
+    cache["pos"] += ((1 + n_acc)
+                     * _to_device(active.astype(np.int32), dev)
+                     ).to(torch.int32)
+    committed, n_acc, keys = _to_host(committed, n_acc, keys)
+    return (committed.astype(np.int32), n_acc.astype(np.int32),
+            keys.astype(np.uint32))
+
+
+def verify_chunk_slots(params: Params, cache: Cache, token, draft, rngs,
+                       active, *, cfg: GPTConfig, k: int,
+                       temperature: float = 0.0
+                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """ONE batched target forward verifying k drafted tokens per active
+    slot of a flat pool (``gpt_decode.py:1606``). Feeds ``[last,
+    d_1..d_k]`` at each slot's ``pos..pos+k``, writes their K/V there
+    (inactive slots and positions past ``max_len`` are dropped), each
+    query attending ``<= pos + i``; then :func:`_spec_accept` and ``pos
+    += 1 + n_acc``. The rejected positions' K/V lie past the new ``pos``
+    and are overwritten before any query reads them.
+
+    ``token [B]``, ``draft [B, k]``, ``rngs [B, 2]`` and ``active [B]``
+    are host arrays. Returns host ``(committed [B, k+1], n_acc [B],
+    rngs')`` in ONE transfer; rows of inactive slots are garbage."""
+    max_len = cache["k"].shape[2]
+    scale = softmax_scale(cfg.head_dim)
+
+    def plan(active, pos, positions, pos_d):
+        dev = pos_d.device
+        valid = (torch.arange(max_len, device=dev)[None, None, None, :]
+                 <= pos_d[:, None, :, None])                  # [B,1,S,T]
+        bi, si = np.nonzero(active[:, None] & (positions < max_len))
+        w = _to_device(np.stack([bi, si, positions[bi, si]]), dev)
+
+        def attend(i, q, kk, vv):
+            kc, vc = cache["k"][i], cache["v"][i]
+            kc[w[0], w[2]] = kk[w[0], w[1]]
+            vc[w[0], w[2]] = vv[w[0], w[1]]
+            return _attend(q, kc, vc, valid, scale)
+        return attend
+
+    return _verify(params, cache, token, draft, rngs, active, cfg=cfg, k=k,
+                   temperature=temperature, plan=plan)
+
+
+def verify_chunk_slots_paged(params: Params, cache: Cache, token, draft,
+                             rngs, active, pt, *, cfg: GPTConfig, k: int,
+                             page_size: int, temperature: float = 0.0,
+                             kv_dtype: str = "fp"
+                             ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Paged twin of :func:`verify_chunk_slots` (``gpt_decode.py:1680``):
+    K/V of ``pos + i`` land at ``(pt[b, (pos+i) // ps], (pos+i) % ps)``
+    (unmapped, past-the-table or inactive targets are dropped) and each
+    query attends its virtual sequence gathered through its page-table
+    row, valid ``<= pos + i``. int8 pools merge the k+1 rows through
+    :func:`_merge_span_int8` and attend the dequantised pages, so the
+    decision sees exactly the K/V a later decode step will. ``pt [B,
+    max_pages]`` is a host array; the rest as in the flat version."""
+    pt = np.asarray(pt, np.int64)
+    ps, hd = page_size, cfg.head_dim
+    n_pages = cache["k"].shape[1]
+    max_pages = pt.shape[1]
+    S = k + 1
+    scale = softmax_scale(hd)
+
+    def plan(active, pos, positions, pos_d):
+        dev = pos_d.device
+        B = pt.shape[0]
+        ptc = _to_device(np.clip(pt, 0, n_pages - 1), dev)
+        valid = (torch.arange(max_pages * ps, device=dev)
+                 [None, None, None, :] <= pos_d[:, None, :, None])
+        if kv_dtype == "int8":
+            span = _span_plan(pt, pos, S, active, ps, S, n_pages, dev)
+        else:
+            vp = positions // ps
+            page_idx = np.take_along_axis(pt, np.clip(vp, 0, max_pages - 1),
+                                          1)
+            ok = (active[:, None] & (vp < max_pages) & (page_idx >= 0)
+                  & (page_idx < n_pages))
+            bi, si = np.nonzero(ok)
+            w = _to_device(np.stack([bi, si, page_idx[bi, si],
+                                     positions[bi, si] % ps]), dev)
+
+        def attend(i, q, kk, vv):
+            kc, vc = cache["k"][i], cache["v"][i]
+            if kv_dtype == "int8":
+                ksc, vsc = cache["ks"][i], cache["vs"][i]
+                _merge_span_int8(kc, ksc, kk, span)
+                _merge_span_int8(vc, vsc, vv, span)
+                hk = _deq_page(kc[ptc], ksc[ptc], q.dtype)
+                hv = _deq_page(vc[ptc], vsc[ptc], q.dtype)
+            else:
+                kc[w[2], w[3]] = kk[w[0], w[1]]
+                vc[w[2], w[3]] = vv[w[0], w[1]]
+                hk, hv = kc[ptc], vc[ptc]
+            return _attend(q, hk.reshape(B, max_pages * ps, -1, hd),
+                           hv.reshape(B, max_pages * ps, -1, hd), valid,
+                           scale)
+        return attend
+
+    return _verify(params, cache, token, draft, rngs, active, cfg=cfg, k=k,
+                   temperature=temperature, plan=plan)

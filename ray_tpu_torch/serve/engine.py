@@ -1,39 +1,52 @@
-"""Continuous-batching decode engine over a paged KV pool: the port of
-``ray_tpu/serve/engine.py`` (paged pool, one device, greedy).
+"""Continuous-batching decode engine: the port of
+``ray_tpu/serve/engine.py`` (one device; paged or flat pool; greedy or
+seeded sampling; optional speculative decoding).
 
 One driver thread owns every device dispatch; ``submit``/``stream`` only
 enqueue and are safe from any thread. The design is the reference's:
 
-- ONE long-lived paged KV pool
-  (:func:`~ray_tpu_torch.models.gpt_decode.init_paged_cache`), split into
-  fixed-size pages handed out by a host allocator (:class:`_PagePool`);
-  each slot carries a page-table row the device code reads through.
-- Admission happens at **chunk boundaries**: the prompt's suffix is
-  prefilled into a free slot
-  (:func:`~ray_tpu_torch.models.gpt_decode.prefill_into_slot_paged`,
-  right-padded to a prompt bucket) and its first token streams out at
-  once; then every active slot decodes ``chunk`` tokens per dispatch
-  (:func:`~ray_tpu_torch.models.gpt_decode.decode_chunk_slots_paged`).
+- ONE long-lived KV pool. Paged (the port's default): fixed-size pages
+  (:func:`~ray_tpu_torch.models.gpt_decode.init_paged_cache`) handed out
+  by a host allocator (:class:`_PagePool`), each slot carrying a
+  page-table row the device code reads through. Flat (``paged=False``):
+  ``max_len`` positions reserved per slot
+  (:func:`~ray_tpu_torch.models.gpt_decode.init_slot_cache`).
+- Admission happens at **chunk boundaries**: the prompt (paged: its
+  uncached suffix) is prefilled into a free slot, right-padded to a
+  prompt bucket, and its first token streams out at once; then every
+  active slot decodes ``chunk`` tokens per dispatch.
+- **Sampling**: greedy at temperature 0; above it each request samples
+  from its own PRNG lane, seeded with ``PRNGKey(seed)`` at admission,
+  uploaded with each dispatch and read back with its tokens, so a
+  stream depends only on its prompt, knobs and seed.
 - Pages are allocated **on advance**. Out of pages is a defined
   backpressure path: admission defers (FIFO kept), a running slot parks
   out of the dispatch mask, and if every occupied slot is parked the
-  youngest lane is preempted **by recompute** — its pages free, its
-  request requeues at the head, and the replay suppresses the tokens it
-  already delivered.
+  youngest lane is preempted **by recompute**: its pages free, its
+  request requeues at the head, and the replay (the same seeded
+  stream) suppresses the tokens it already delivered.
 - A **prefix cache** (:class:`_PrefixCache`) maps a resident prompt
   prefix into the new slot's table (refcounted); a prefix that ends
   mid-page forks that page copy-on-write inside the prefill.
+- **Speculative decoding** (``spec_decode``): a drafter
+  (:mod:`~ray_tpu_torch.serve.draft`) proposes ``draft_k`` tokens per
+  slot, one batched verify commits the accepted prefix plus a
+  correction/bonus token; the committed stream is the non-speculative
+  one. With ``spec_threshold > 0`` a round whose drafters expect little
+  falls back to one plain chunk.
 
 At temperature 0 each stream is token-identical to the reference's
-``generate_chunked`` for the same prompt (f32 compute; asserted in
-``tests/test_torch_engine.py``). Left for later slices: the flat pool,
-speculative decoding, prefill/decode roles and KV handoff, tensor
-parallelism, driver supervision, tracing and metrics, and sampling at
-temperature > 0 (it needs the reference's threefry PRNG stream).
+``generate_chunked`` for the same prompt, and at temperature > 0 to the
+reference engine's stream for the same seed (f32 compute; asserted in
+``tests/test_torch_engine.py`` and ``tests/test_torch_engine_spec.py``).
+Left for later slices: prefill/decode roles and KV handoff, tensor
+parallelism, and the serve front (driver supervision, epochs, tracing
+and metrics).
 """
 from __future__ import annotations
 
 import collections
+import functools
 import hashlib
 import queue
 import threading
@@ -43,9 +56,11 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .._private import prng
 from .._private.device import (DeviceLike, resolve_device,
                                set_matmul_precision)
 from ..models import gpt_decode
+from .draft import make_drafter
 from ._stream import (_STREAM_END, RequestDeadlineExceeded, _EngineStream,
                       _StreamLane, deadline_expired, default_buckets)
 
@@ -65,9 +80,10 @@ class _EngineRequest:
     max_new: int
     lane: _StreamLane
     deadline_s: Optional[float]
-    #: Tokens already delivered before a recompute preemption: the
-    #: replay regenerates them (greedy decoding is deterministic) and
-    #: suppresses this many from the stream.
+    seed: int = 0                 # PRNG lane seed (temperature > 0)
+    #: Tokens already delivered (before a recompute preemption, or by
+    #: the caller's ``resume_from``): the replay regenerates them (the
+    #: seeded stream is deterministic) and suppresses this many.
     skip: int = 0
 
 
@@ -214,7 +230,8 @@ class _PrefixCache:
 
 
 class DecodeEngine:
-    """Slot-based continuous-batching engine over a paged KV pool.
+    """Slot-based continuous-batching engine over a paged or flat KV
+    pool.
 
     Usage::
 
@@ -228,30 +245,40 @@ class DecodeEngine:
     (:func:`~ray_tpu_torch.models.gpt.init_params` or
     :func:`~ray_tpu_torch.models.gpt.params_from_numpy`); it is moved to
     ``device``, which defaults to the card (``device="cpu"`` runs the
-    plain PyTorch path). ``attn_kernel`` picks the decode attention:
-    ``"cuda"`` (the hand-written kernel) or ``"gather"`` (its plain
-    version). ``kv_dtype="int8"`` stores pages as int8 codes with
-    per-(page, head) scales; the default ``n_pages`` buys the same KV
-    bytes as ``slots`` full-length fp sequences."""
+    plain PyTorch path).
+
+    - ``temperature > 0`` samples each request from its own PRNG lane
+      (``submit(..., seed=)``); 0 is greedy.
+    - ``paged=True`` (the port's default; the reference defaults to
+      flat) pages the pool. ``attn_kernel`` picks the paged decode
+      attention: ``"cuda"`` (the hand-written kernel, the default) or
+      ``"gather"`` (its plain version). ``kv_dtype="int8"`` stores pages
+      as int8 codes with per-(page, head) scales; the default ``n_pages``
+      buys the same KV bytes as ``slots`` full-length fp sequences. A
+      flat pool (``paged=False``) attends by plain einsums and takes
+      neither knob.
+    - ``spec_decode`` (``"ngram"``, ``"model"``, ``True`` or a
+      :class:`~ray_tpu_torch.serve.draft.Drafter`) turns each dispatch
+      into draft ``draft_k`` + one verify; ``spec_threshold > 0`` (greedy
+      engines only) runs a plain chunk instead whenever the drafters'
+      mean expected acceptance is below it."""
 
     def __init__(self, params, cfg, *, slots: int = 4, chunk: int = 8,
                  max_len: int = 0, temperature: float = 0.0,
                  eos_token: int = -1,
                  prompt_buckets: Optional[Sequence[int]] = None,
-                 page_size: int = 16, n_pages: int = 0,
-                 prefix_cache: bool = True, attn_kernel: str = "cuda",
-                 kv_dtype: str = "fp", device: DeviceLike = None,
+                 paged: bool = True, page_size: int = 16,
+                 n_pages: int = 0, prefix_cache: bool = True,
+                 attn_kernel: Optional[str] = None, kv_dtype: str = "fp",
+                 spec_decode=None, draft_k: int = 4,
+                 spec_threshold: float = 0.0, device: DeviceLike = None,
                  auto_start: bool = True):
         self.cfg = cfg
         self.slots = int(slots)
         self.chunk = int(chunk)
         self.max_len = int(max_len or cfg.max_seq)
+        self.temperature = float(temperature)
         self.eos_token = int(eos_token)
-        if temperature > 0.0:
-            raise ValueError(
-                "temperature > 0 is not ported yet: seeded sampling needs "
-                "the reference's threefry PRNG stream; serve greedy "
-                "(temperature=0)")
         if self.slots < 1 or self.chunk < 1:
             raise ValueError("slots and chunk must be >= 1")
         if self.max_len > cfg.max_seq:
@@ -266,7 +293,19 @@ class DecodeEngine:
                 f"largest prompt bucket {buckets[-1]} exceeds cache "
                 f"length {self.max_len}")
         self.prompt_buckets = buckets
-        if attn_kernel not in gpt_decode.ATTN_KERNELS:
+        self.draft_k = int(draft_k)
+        self.spec_threshold = float(spec_threshold)
+        if self.draft_k < 1:
+            raise ValueError("draft_k must be >= 1")
+        if self.spec_threshold > 0.0 and self.temperature > 0.0:
+            raise ValueError(
+                "spec_threshold > 0 (adaptive speculation) requires "
+                "temperature 0: the pool-wide verify-or-chunk decision "
+                "depends on which lanes share the pool, and a sampled "
+                "stream replayed in another pool would consume a "
+                "different PRNG chain")
+        if attn_kernel is not None and \
+                attn_kernel not in gpt_decode.ATTN_KERNELS:
             raise ValueError(
                 f"unknown attn_kernel {attn_kernel!r}; expected one of "
                 f"{gpt_decode.ATTN_KERNELS}")
@@ -274,12 +313,73 @@ class DecodeEngine:
             raise ValueError(
                 f"unknown kv_dtype {kv_dtype!r}; expected one of "
                 f"{gpt_decode.KV_DTYPES}")
-        self.attn_kernel = attn_kernel
+        if not paged and (attn_kernel not in (None, "gather")
+                          or kv_dtype != "fp"):
+            raise ValueError(
+                "attn_kernel/kv_dtype are paged-pool knobs; construct "
+                "the engine with paged=True")
+        self.attn_kernel = attn_kernel or ("cuda" if paged else "gather")
         self.kv_dtype = kv_dtype
         self.device = resolve_device(device)
         set_matmul_precision(self.device)
         self.params = {k: v.to(self.device) for k, v in params.items()}
+        self._drafter = make_drafter(spec_decode, self.params, cfg)
+        if self._drafter is not None:
+            self._drafter.configure(
+                slots=self.slots, max_len=self.max_len,
+                prompt_buckets=self.prompt_buckets, draft_k=self.draft_k)
+        self._build_pool(paged, page_size, n_pages, prefix_cache)
 
+        # Per-slot host state; index i mirrors pool row i. ``_token`` /
+        # ``_rngs`` are each slot's last token and PRNG lane, uploaded
+        # with each dispatch.
+        self._state: List[Optional[_Slot]] = [None] * self.slots
+        self._token = np.zeros((self.slots,), np.int32)
+        self._rngs = np.zeros((self.slots, 2), np.uint32)
+        self._queue: "queue.SimpleQueue" = queue.SimpleQueue()
+        # Driver-local FIFO fed from the submit queue; the head defers in
+        # place when admission runs out of pages.
+        self._pending: "collections.deque[_EngineRequest]" = \
+            collections.deque()
+        # Guards the submit-vs-final-drain race: once _fail_all flips
+        # _draining under this lock, no submission can land in a queue
+        # nobody will read again.
+        self._admit_lock = threading.Lock()
+        self._draining = False
+        self._fail_lock = threading.Lock()
+        self._stats_lock = threading.Lock()
+        self._stats = {"admitted": 0, "completed": 0, "expired": 0,
+                       "abandoned": 0, "prefills": 0, "dispatches": 0,
+                       "tokens": 0, "occupancy_sum": 0.0,
+                       "peak_active": 0, "prefix_hits": 0,
+                       "prefix_tokens_reused": 0, "cow_copies": 0,
+                       "admissions_deferred": 0, "lane_parks": 0,
+                       "preempted": 0, "resumed": 0, "spec_rounds": 0,
+                       "spec_proposed": 0, "spec_accepted": 0,
+                       "spec_fallback_rounds": 0, "spec_lanes": 0}
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        if auto_start:
+            self.start()
+
+    def _build_pool(self, paged: bool, page_size: int, n_pages: int,
+                    prefix_cache: bool):
+        """Allocate THE pool, flat or paged (``engine.py:606``), and bind
+        the chunk step ``_step(token, rngs, active)`` to it."""
+        cfg = self.cfg
+        self.paged = bool(paged)
+        knobs = dict(cfg=cfg, k=self.chunk, temperature=self.temperature,
+                     eos_token=self.eos_token)
+        if not self.paged:
+            self.page_size = self.n_pages = self.max_pages = 0
+            self._pool = self._prefix = self._pt = None
+            self._cache = gpt_decode.init_slot_cache(
+                cfg, self.slots, self.max_len, self.device)
+            self._step = functools.partial(
+                gpt_decode.decode_chunk_slots, self.params, self._cache,
+                **knobs)
+            self._bind_verify()
+            return
         self.page_size = int(page_size)
         if self.page_size < 1:
             raise ValueError("page_size must be >= 1")
@@ -301,41 +401,90 @@ class DecodeEngine:
         self._cache = gpt_decode.init_paged_cache(
             cfg, self.slots, self.n_pages, self.page_size, self.kv_dtype,
             self.device)
+        self._step = functools.partial(
+            gpt_decode.decode_chunk_slots_paged, self.params, self._cache,
+            pt=self._pt, page_size=self.page_size, kv_dtype=self.kv_dtype,
+            attn_kernel=self.attn_kernel, **knobs)
+        self._bind_verify()
 
-        # Per-slot host state; index i mirrors pool row i. ``_token`` is
-        # each slot's last token, uploaded with each dispatch.
-        self._state: List[Optional[_Slot]] = [None] * self.slots
-        self._token = np.zeros((self.slots,), np.int32)
-        self._queue: "queue.SimpleQueue" = queue.SimpleQueue()
-        # Driver-local FIFO fed from the submit queue; the head defers in
-        # place when admission runs out of pages.
-        self._pending: "collections.deque[_EngineRequest]" = \
-            collections.deque()
-        # Guards the submit-vs-final-drain race: once _fail_all flips
-        # _draining under this lock, no submission can land in a queue
-        # nobody will read again.
-        self._admit_lock = threading.Lock()
-        self._draining = False
-        self._fail_lock = threading.Lock()
-        self._stats_lock = threading.Lock()
-        self._stats = {"admitted": 0, "completed": 0, "expired": 0,
-                       "abandoned": 0, "prefills": 0, "dispatches": 0,
-                       "tokens": 0, "occupancy_sum": 0.0,
-                       "peak_active": 0, "prefix_hits": 0,
-                       "prefix_tokens_reused": 0, "cow_copies": 0,
-                       "admissions_deferred": 0, "lane_parks": 0,
-                       "preempted": 0}
-        self._stop = threading.Event()
-        self._thread: Optional[threading.Thread] = None
-        if auto_start:
-            self.start()
+    def _bind_verify(self):
+        """Bind the verify step ``_verify(token, draft, rngs, active)``
+        to the pool and ``draft_k`` (``engine.py:683``); None with
+        speculation off."""
+        knobs = dict(cfg=self.cfg, k=self.draft_k,
+                     temperature=self.temperature)
+        if self._drafter is None:
+            self._verify = None
+        elif self.paged:
+            self._verify = functools.partial(
+                gpt_decode.verify_chunk_slots_paged, self.params,
+                self._cache, pt=self._pt, page_size=self.page_size,
+                kv_dtype=self.kv_dtype, **knobs)
+        else:
+            self._verify = functools.partial(
+                gpt_decode.verify_chunk_slots, self.params, self._cache,
+                **knobs)
+
+    def ensure_spec(self, spec_decode=None, draft_k: Optional[int] = None,
+                    spec_threshold: Optional[float] = None):
+        """Idempotently apply the speculative-decoding knobs
+        (``engine.py:776``). A matching engine is a no-op; a mismatched
+        one is reconfigured IF it has never admitted a request, else this
+        raises: the drafter's per-slot state is not something to swap
+        under live lanes."""
+        if draft_k is not None and int(draft_k) < 1:
+            raise ValueError("draft_k must be >= 1")
+        with self._admit_lock:
+            want_k = int(draft_k) if draft_k is not None else self.draft_k
+            cur = self._drafter
+            if spec_decode is None:
+                want = cur
+            elif isinstance(spec_decode, str) and cur is not None \
+                    and cur.name == spec_decode:
+                want = cur
+            elif spec_decode is True and cur is not None:
+                want = cur
+            else:
+                want = make_drafter(spec_decode, self.params, self.cfg)
+            want_thr = float(spec_threshold) \
+                if spec_threshold is not None else self.spec_threshold
+            if want_thr > 0.0 and self.temperature > 0.0:
+                raise ValueError(
+                    "spec_threshold > 0 (adaptive speculation) "
+                    "requires temperature 0 — see DecodeEngine")
+            if want is cur and want_k == self.draft_k \
+                    and want_thr == self.spec_threshold:
+                return self
+            with self._stats_lock:
+                used = self._stats["admitted"]
+            if used or self._queue.qsize() or self._pending or \
+                    any(s is not None for s in self._state):
+                raise ValueError(
+                    "cannot change spec_decode/draft_k on a live "
+                    "engine; construct it with the knobs or apply them "
+                    "before traffic")
+            self.draft_k = want_k
+            self.spec_threshold = want_thr
+            self._drafter = want
+            if want is not None:
+                want.configure(slots=self.slots, max_len=self.max_len,
+                               prompt_buckets=self.prompt_buckets,
+                               draft_k=self.draft_k)
+            self._bind_verify()
+        return self
 
     # ------------------------------------------------------------ admission
     def submit(self, prompt, max_new: int, *,
-               deadline_s: Optional[float] = None) -> _StreamLane:
+               deadline_s: Optional[float] = None, seed: int = 0,
+               resume_from: int = 0) -> _StreamLane:
         """Enqueue one request; returns its stream lane immediately. The
         driver admits it at the next chunk boundary with a free slot.
-        ``deadline_s`` is an absolute ``time.time()`` stamp."""
+        ``deadline_s`` is an absolute ``time.time()`` stamp; ``seed``
+        seeds the request's PRNG lane (temperature > 0).
+
+        ``resume_from=n`` says the caller already holds the first ``n``
+        tokens of this exact (prompt, knobs, seed) stream: the engine
+        replays the generation and suppresses those ``n`` tokens."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         S = prompt.shape[0]
         if S < 1:
@@ -349,6 +498,13 @@ class DecodeEngine:
             raise ValueError(
                 f"prompt ({S}) + max_new ({max_new}) exceeds cache "
                 f"length {self.max_len}")
+        resume_from = int(resume_from)
+        if resume_from < 0 or resume_from > max_new:
+            raise ValueError(
+                f"resume_from {resume_from} outside [0, max_new="
+                f"{max_new}]: it counts tokens this stream already "
+                f"delivered")
+        prng.PRNGKey(seed)            # a seed outside int64 fails here
         lane = _StreamLane()
         if max_new <= 0:
             lane.q.put((_STREAM_END, None))
@@ -359,7 +515,10 @@ class DecodeEngine:
                     "engine is not accepting requests (shut down)")
             self._queue.put(_EngineRequest(
                 prompt=prompt, bucket=bucket, max_new=int(max_new),
-                lane=lane, deadline_s=deadline_s))
+                lane=lane, deadline_s=deadline_s, seed=int(seed),
+                skip=resume_from))
+        if resume_from:
+            self._count(resumed=1)
         return lane
 
     def stream(self, prompt, max_new: int, **kw) -> _EngineStream:
@@ -407,17 +566,33 @@ class DecodeEngine:
             (out["dispatches"] + out["prefills"]) / max(out["tokens"], 1))
         out["page_size"] = self.page_size
         out["n_pages"] = self.n_pages
-        out["pages_free"] = self._pool.available()
-        out["pages_used"] = self.n_pages - self._pool.available()
-        out["parked_slots"] = sum(
-            s is not None and s.parked for s in self._state)
+        if self.paged:
+            out["pages_free"] = self._pool.available()
+            out["pages_used"] = self.n_pages - self._pool.available()
+            out["parked_slots"] = sum(
+                s is not None and s.parked for s in self._state)
         if self._prefix is not None:
             out["prefix_cache_entries"] = len(self._prefix)
             out["prefix_evictions"] = self._prefix.evictions
+        sp = {k: out.pop("spec_" + k) for k in
+              ("rounds", "proposed", "accepted", "fallback_rounds",
+               "lanes")}
+        if self._drafter is not None:
+            out["spec"] = dict(
+                sp, drafter=self._drafter.name, draft_k=self.draft_k,
+                threshold=self.spec_threshold,
+                acceptance_rate=sp["accepted"] / max(sp["proposed"], 1),
+                # Per lane per verify forward: a lane commits its
+                # accepted prefix plus the correction/bonus token.
+                mean_accept_len=sp["accepted"] / max(sp["lanes"], 1),
+                accepted_per_forward=(sp["accepted"] + sp["lanes"])
+                / max(sp["lanes"], 1))
+        out["paged"] = self.paged
         out["attn_kernel"] = self.attn_kernel
         out["kv_dtype"] = self.kv_dtype
+        ps = self.page_size or 1
         out["kv_bytes_per_token"] = gpt_decode.kv_bytes_per_page(
-            self.cfg, self.page_size, self.kv_dtype) / self.page_size
+            self.cfg, ps, self.kv_dtype) / ps
         out["driver_alive"] = bool(self._thread is not None
                                    and self._thread.is_alive())
         return out
@@ -446,7 +621,10 @@ class DecodeEngine:
                     except queue.Empty:
                         pass
                     continue
-                self._dispatch_chunk()
+                if self._drafter is not None:
+                    self._dispatch_spec()
+                else:
+                    self._dispatch_chunk()
             self._fail_all(EngineShutdownError("engine shut down"))
         except BaseException as e:  # noqa: BLE001 - driver died: fan out
             exc = e
@@ -483,12 +661,14 @@ class DecodeEngine:
                 req.lane.q.put(("err", exc))
 
     def _free_slot(self, i: int):
-        """Release slot i: its page references drop and its page-table
-        row resets to sentinel."""
+        """Release slot i: its page references drop, its page-table row
+        resets to sentinel, and the drafter forgets it."""
         st = self._state[i]
         if st is not None and st.pages:
             self._pool.unref(st.pages)
             self._pt[i, :] = gpt_decode.PT_SENTINEL
+        if st is not None and self._drafter is not None:
+            self._drafter.free(i)
         self._state[i] = None
 
     def _alloc_pages(self, n: int) -> Optional[List[int]]:
@@ -534,10 +714,19 @@ class DecodeEngine:
         suppress) its first token; False defers (no pages)."""
         slot = next(i for i, s in enumerate(self._state) if s is None)
         P = req.prompt.shape[0]
-        admitted = self._prefill_paged(req, slot, P)
-        if admitted is None:
-            return False
-        first, pages = admitted
+        key = prng.PRNGKey(req.seed)
+        if self.paged:
+            admitted = self._prefill_paged(req, slot, P, key)
+            if admitted is None:
+                return False
+            first, pages = admitted
+        else:
+            padded = np.zeros((1, req.bucket), np.int32)
+            padded[0, :P] = req.prompt
+            first, self._rngs[slot] = gpt_decode.prefill_into_slot(
+                self.params, self._cache, padded, P, slot, key,
+                cfg=self.cfg, temperature=self.temperature)
+            pages = []
         self._count(prefills=1, admitted=1 if req.skip == 0 else 0)
         self._token[slot] = first
         skip = req.skip
@@ -550,18 +739,23 @@ class DecodeEngine:
                                 and first == self.eos_token):
             req.lane.q.put((_STREAM_END, None))
             self._count(completed=1)
-            self._pool.unref(pages)
-            self._pt[slot, :] = gpt_decode.PT_SENTINEL
+            if pages:
+                self._pool.unref(pages)
+                self._pt[slot, :] = gpt_decode.PT_SENTINEL
             return True
         self._state[slot] = _Slot(
             lane=req.lane, remaining=req.max_new - 1,
             deadline_s=req.deadline_s, req=req,
             emitted=1 if req.skip == 0 else req.skip, pos=P, pages=pages,
             skip=skip)
+        if self._drafter is not None:
+            # Per-slot drafter state from the prompt and first token: a
+            # replay rebuilds it bit-equal.
+            self._drafter.admit(slot, req.prompt, first)
         return True
 
-    def _prefill_paged(self, req: _EngineRequest, slot: int, P: int
-                       ) -> Optional[Tuple[int, List[int]]]:
+    def _prefill_paged(self, req: _EngineRequest, slot: int, P: int,
+                       key: np.ndarray) -> Optional[Tuple[int, List[int]]]:
         """Map the cached prefix (refcounted, COW fork if it ends
         mid-page), allocate fresh pages for the suffix, prefill ONLY the
         suffix, then register the prompt's pages in the prefix cache.
@@ -597,9 +791,10 @@ class DecodeEngine:
                          np.int32)
         pt_row[:len(pages)] = pages
         self._pt[slot] = pt_row
-        first = gpt_decode.prefill_into_slot_paged(
+        first, self._rngs[slot] = gpt_decode.prefill_into_slot_paged(
             self.params, self._cache, padded, sl, hist, pt_row, cow_src,
-            slot, cfg=self.cfg, page_size=ps, kv_dtype=self.kv_dtype)
+            slot, key, cfg=self.cfg, page_size=ps,
+            temperature=self.temperature, kv_dtype=self.kv_dtype)
         if partial:
             # The fork is enqueued ahead of any later write to cow_src on
             # the same stream; its pin is no longer needed.
@@ -639,6 +834,12 @@ class DecodeEngine:
             if st is None:
                 continue
             need = st.pos + min(self.chunk, st.remaining)
+            if self._drafter is not None:
+                # Verify writes K/V at pos..pos+draft_k; a dropped write
+                # is safe only past what the lane can still commit. A
+                # fallback round runs a chunk instead: cover both.
+                need = max(need,
+                           st.pos + min(self.draft_k, st.remaining) + 1)
             while len(st.pages) * ps < need:
                 got = self._alloc_pages(1)
                 if got is None:
@@ -667,59 +868,125 @@ class DecodeEngine:
         self._count(preempted=1)
         return False
 
-    def _dispatch_chunk(self):
+    def _dispatch_chunk(self, cover: bool = True):
         """ONE k-step decode over every active slot, then per-slot
-        routing/trimming and boundary frees."""
-        if not self._cover_pages():
+        routing/trimming and boundary frees. ``cover=False``: the spec
+        dispatcher already ran this boundary's coverage pass before
+        falling back to a chunk."""
+        if cover and self.paged and not self._cover_pages():
             return                    # re-run admission/coverage pass
         active = np.array([s is not None and not s.parked
                            for s in self._state], bool)
         n_active = int(active.sum())
-        toks_np, _done = gpt_decode.decode_chunk_slots_paged(
-            self.params, self._cache, self._token, active, self._pt,
-            cfg=self.cfg, k=self.chunk, page_size=self.page_size,
-            eos_token=self.eos_token, kv_dtype=self.kv_dtype,
-            attn_kernel=self.attn_kernel)
+        toks_np, _done, rngs_np = self._step(self._token, self._rngs,
+                                             active)
         self._count(dispatches=1, occupancy_sum=n_active / self.slots)
-        with self._stats_lock:
-            self._stats["peak_active"] = max(self._stats["peak_active"],
-                                             n_active)
+        self._peak(n_active)
         emitted = 0
         for i, st in enumerate(self._state):
             if st is None or st.parked:
                 continue                     # parked: nothing advanced
             self._token[i] = toks_np[i, -1]
+            self._rngs[i] = rngs_np[i]
             st.pos += self.chunk             # mirrors the device pos
-            if st.lane.closed:               # consumer left: free now
-                self._free_slot(i)
-                self._count(abandoned=1)
-                continue
-            if deadline_expired(st.deadline_s):
-                st.lane.q.put(("err", RequestDeadlineExceeded(
-                    "request deadline passed mid-generation")))
-                self._free_slot(i)
-                self._count(expired=1)
-                continue
-            row = toks_np[i]
-            j = min(self.chunk, st.remaining)
-            finished = st.remaining <= self.chunk
-            if self.eos_token >= 0:
-                hits = np.flatnonzero(row[:j] == self.eos_token)
-                if hits.size:                # free at the EOS
-                    j = int(hits[0]) + 1
-                    finished = True
-            # Recompute replay: the first ``skip`` regenerated tokens
-            # were delivered before the preemption — suppress them.
-            cut = min(st.skip, j)
-            st.skip -= cut
-            if j > cut:
-                st.lane.q.put(("item", row[cut:j].copy()))
-                st.emitted += j - cut
-                emitted += j - cut
-            st.remaining -= j
-            if finished:
-                st.lane.q.put((_STREAM_END, None))
-                self._free_slot(i)
-                self._count(completed=1)
+            n, j, running = self._deliver(i, st, toks_np[i], self.chunk)
+            emitted += n
+            if running and self._drafter is not None:
+                # Adaptive fallback round: keep the drafter's history
+                # (and its self-assessment) current; -1 = nothing was
+                # proposed.
+                self._drafter.observe(i, toks_np[i, :j], -1)
         if emitted:
             self._count(tokens=emitted)
+
+    def _dispatch_spec(self):
+        """Draft-k-verify-once twin of :meth:`_dispatch_chunk`
+        (``engine.py:2326``): the drafter proposes ``draft_k`` tokens per
+        active slot, ONE batched verify scores them, and each slot
+        advances by its own ``accepted + 1``, through the same
+        EOS/deadline/replay delivery as the chunk path.
+
+        ``spec_threshold > 0``: the round verifies only when the
+        drafters' mean expected acceptance over the runnable lanes
+        clears the threshold, else it runs ONE plain chunk for the whole
+        pool (a split pool would pay for both steps)."""
+        if self.paged and not self._cover_pages():
+            return                    # re-run admission/coverage pass
+        active = np.array([s is not None and not s.parked
+                           for s in self._state], bool)
+        n_active = int(active.sum())
+        if not n_active:
+            return
+        if self.spec_threshold > 0.0:
+            ests = [self._drafter.estimate(i)
+                    for i in range(self.slots) if active[i]]
+            if not any(e is None for e in ests) \
+                    and sum(ests) / n_active < self.spec_threshold:
+                self._count(spec_fallback_rounds=1)
+                self._dispatch_chunk(cover=False)
+                return
+        draft = self._drafter.propose(active, self._token)
+        com_np, acc_np, rngs_np = self._verify(self._token, draft,
+                                               self._rngs, active)
+        accepted = int(acc_np[active].sum())
+        self._count(dispatches=1, occupancy_sum=n_active / self.slots,
+                    spec_rounds=1, spec_proposed=self.draft_k * n_active,
+                    spec_accepted=accepted, spec_lanes=n_active)
+        self._peak(n_active)
+        emitted = 0
+        for i, st in enumerate(self._state):
+            if st is None or not active[i]:
+                continue
+            na = int(acc_np[i])
+            self._rngs[i] = rngs_np[i]
+            st.pos += na + 1                 # mirrors the device pos
+            n, j, running = self._deliver(i, st, com_np[i], na + 1)
+            emitted += n
+            if running:
+                self._token[i] = com_np[i, j - 1]   # last delivered
+                self._drafter.observe(i, com_np[i, :j], na)
+        if emitted:
+            self._count(tokens=emitted)
+
+    def _peak(self, n_active: int):
+        with self._stats_lock:
+            self._stats["peak_active"] = max(self._stats["peak_active"],
+                                             n_active)
+
+    def _deliver(self, i: int, st: _Slot, row: np.ndarray, adv: int
+                 ) -> Tuple[int, int, bool]:
+        """Route the ``adv`` tokens slot ``i`` produced this round
+        (``row[:adv]``): free it if its consumer left or its deadline
+        passed, trim at ``remaining`` and the first EOS, suppress replay
+        tokens, stream the rest, and free it when finished. Returns
+        (tokens delivered, tokens consumed ``j``, lane still running)."""
+        if st.lane.closed:                   # consumer left: free now
+            self._free_slot(i)
+            self._count(abandoned=1)
+            return 0, 0, False
+        if deadline_expired(st.deadline_s):
+            st.lane.q.put(("err", RequestDeadlineExceeded(
+                "request deadline passed mid-generation")))
+            self._free_slot(i)
+            self._count(expired=1)
+            return 0, 0, False
+        j = min(adv, st.remaining)
+        finished = st.remaining <= adv
+        if self.eos_token >= 0:
+            hits = np.flatnonzero(row[:j] == self.eos_token)
+            if hits.size:                    # free at the EOS
+                j = int(hits[0]) + 1
+                finished = True
+        # Replay: the first ``skip`` regenerated tokens were delivered
+        # before (a preemption or the caller's resume_from): suppress.
+        cut = min(st.skip, j)
+        st.skip -= cut
+        if j > cut:
+            st.lane.q.put(("item", row[cut:j].copy()))
+            st.emitted += j - cut
+        st.remaining -= j
+        if finished:
+            st.lane.q.put((_STREAM_END, None))
+            self._free_slot(i)
+            self._count(completed=1)
+        return j - cut, j, not finished

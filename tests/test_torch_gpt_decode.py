@@ -26,11 +26,13 @@ import torch
 
 from ray_tpu.models import gpt as jgpt
 from ray_tpu.models import gpt_decode as jgd
+from ray_tpu_torch._private import prng
 from ray_tpu_torch.models import gpt as tgpt
 from ray_tpu_torch.models import gpt_decode as tgd
 
 PS, SLOTS, N_PAGES, MAX_PAGES, K = 8, 4, 16, 8, 4
 SENT = tgd.PT_SENTINEL
+KEY = prng.PRNGKey(0)
 
 
 @pytest.fixture(scope="module")
@@ -73,23 +75,39 @@ def _pad(suffix, bucket):
 @pytest.mark.parametrize("attn_kernel", ["gather", "cuda"])
 @pytest.mark.parametrize("kv_dtype", ["fp", "int8"])
 def test_prefill_and_decode_match_jax(setup, kv_dtype, attn_kernel):
+    _run_scenario(setup, kv_dtype, attn_kernel, 0.0)
+
+
+@pytest.mark.parametrize("attn_kernel", ["gather", "cuda"])
+@pytest.mark.parametrize("kv_dtype", ["fp", "int8"])
+def test_seeded_sampling_matches_jax(setup, kv_dtype, attn_kernel):
+    """The same scenario at temperature 0.8 with a seeded PRNG lane per
+    slot: first tokens, chunk tokens and the returned lanes identical."""
+    _run_scenario(setup, kv_dtype, attn_kernel, 0.8)
+
+
+def _run_scenario(setup, kv_dtype, attn_kernel, temperature):
     jcfg, tcfg, jp, tp = setup
     jc = jgd.init_paged_cache(jcfg, SLOTS, N_PAGES, PS, kv_dtype)
     tc = tgd.init_paged_cache(tcfg, SLOTS, N_PAGES, PS, kv_dtype, "cpu")
     admissions, _ = _admissions(tcfg.vocab_size)
     pt = np.full((SLOTS, MAX_PAGES), SENT, np.int32)
     first_j, first_t = [], []
+    rngs = np.zeros((SLOTS, 2), np.uint32)
     for slot, suffix, length, hist, row, cow, bucket in admissions:
         padded = _pad(suffix, bucket)
-        tok, jc, _ = jgd.prefill_into_slot_paged(
+        tok, jc, jkey = jgd.prefill_into_slot_paged(
             jp, jc, jnp.asarray(padded), jnp.int32(length),
             jnp.int32(hist), jnp.asarray(row), jnp.int32(cow),
-            jnp.int32(slot), jax.random.PRNGKey(0), cfg=jcfg,
-            page_size=PS, temperature=0.0, kv_dtype=kv_dtype)
+            jnp.int32(slot), jax.random.PRNGKey(slot + 5), cfg=jcfg,
+            page_size=PS, temperature=temperature, kv_dtype=kv_dtype)
         first_j.append(int(tok))
-        first_t.append(tgd.prefill_into_slot_paged(
-            tp, tc, padded, length, hist, row, cow, slot, cfg=tcfg,
-            page_size=PS, kv_dtype=kv_dtype))
+        ttok, rngs[slot] = tgd.prefill_into_slot_paged(
+            tp, tc, padded, length, hist, row, cow, slot,
+            prng.PRNGKey(slot + 5), cfg=tcfg, page_size=PS,
+            temperature=temperature, kv_dtype=kv_dtype)
+        first_t.append(ttok)
+        np.testing.assert_array_equal(rngs[slot], np.asarray(jkey))
         pt[slot] = row
     assert first_t == first_j
     np.testing.assert_array_equal(tc["pos"].numpy(), np.asarray(jc["pos"]))
@@ -100,16 +118,18 @@ def test_prefill_and_decode_match_jax(setup, kv_dtype, attn_kernel):
     pt[1, 2] = 12
     active = np.array([True, True, True, False])
     token = np.array(first_t + [0], np.int32)
-    jtoks, jc, jdone, _ = jgd.decode_chunk_slots_paged(
-        jp, jc, jnp.asarray(token), jnp.zeros((SLOTS, 2), jnp.uint32),
+    jtoks, jc, jdone, jrngs = jgd.decode_chunk_slots_paged(
+        jp, jc, jnp.asarray(token), jnp.asarray(rngs),
         jnp.asarray(active), jnp.asarray(pt), cfg=jcfg, k=K, page_size=PS,
-        temperature=0.0, eos_token=-1, kv_dtype=kv_dtype,
+        temperature=temperature, eos_token=-1, kv_dtype=kv_dtype,
         attn_kernel="gather")
-    ttoks, tdone = tgd.decode_chunk_slots_paged(
-        tp, tc, token, active, pt, cfg=tcfg, k=K, page_size=PS,
-        kv_dtype=kv_dtype, attn_kernel=attn_kernel)
+    ttoks, tdone, trngs = tgd.decode_chunk_slots_paged(
+        tp, tc, token, rngs, active, pt, cfg=tcfg, k=K, page_size=PS,
+        temperature=temperature, kv_dtype=kv_dtype,
+        attn_kernel=attn_kernel)
     assert ttoks.shape == (SLOTS, K) and ttoks.dtype == np.int32
     np.testing.assert_array_equal(ttoks[active], np.asarray(jtoks)[active])
+    np.testing.assert_array_equal(trngs[active], np.asarray(jrngs)[active])
     assert not tdone.any()
     np.testing.assert_array_equal(tc["pos"].numpy(), np.asarray(jc["pos"]))
 
@@ -145,17 +165,17 @@ def test_prefill_cow_fork_matches_fresh_prefill(setup):
     cache = tgd.init_paged_cache(tcfg, SLOTS, N_PAGES, PS, "fp", "cpu")
     slot, suffix, length, hist, row, cow, bucket = admissions[0]
     tgd.prefill_into_slot_paged(tp, cache, _pad(suffix, bucket), length,
-                                hist, row, cow, slot, cfg=tcfg,
+                                hist, row, cow, slot, KEY, cfg=tcfg,
                                 page_size=PS)
     src_before = cache["k"][:, 5].clone()
     slot, suffix, length, hist, row, cow, bucket = admissions[2]
-    forked = tgd.prefill_into_slot_paged(
-        tp, cache, _pad(suffix, bucket), length, hist, row, cow, slot,
+    forked, _ = tgd.prefill_into_slot_paged(
+        tp, cache, _pad(suffix, bucket), length, hist, row, cow, slot, KEY,
         cfg=tcfg, page_size=PS)
     assert torch.equal(cache["k"][:, 5], src_before)
     fresh_cache = tgd.init_paged_cache(tcfg, SLOTS, N_PAGES, PS, "fp",
                                        "cpu")
-    fresh = tgd.prefill_into_slot_paged(
+    fresh, _ = tgd.prefill_into_slot_paged(
         tp, fresh_cache, _pad(prompts[2], 32), 17, 0, _row([1, 2, 4]),
-        SENT, 0, cfg=tcfg, page_size=PS)
+        SENT, 0, KEY, cfg=tcfg, page_size=PS)
     assert forked == fresh

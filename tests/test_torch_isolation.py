@@ -1,9 +1,11 @@
 """The port stands alone: ``ray_tpu_torch`` imports neither ``jax`` nor
 anything of the JAX package ``ray_tpu``.
 
-Checked twice: by an AST scan of every file in the package, and by
-serving two nano requests and taking a nano train step (flash attention,
-``dots`` remat) in a fresh interpreter where ``jax`` is
+Checked twice: by an AST scan of every file in the package (the threefry
+PRNG and the drafters, which reimplement JAX's and copy the reference's,
+included), and by serving nano requests (greedy, seeded temperature > 0,
+and speculative with the n-gram drafter) and taking a nano train step
+(flash attention, ``dots`` remat) in a fresh interpreter where ``jax`` is
 poisoned in ``sys.modules`` and an import hook refuses ``ray_tpu`` and
 ``ray_tpu.*`` (but not ``ray_tpu_torch``). A subprocess, because this
 suite's conftest imports JAX into the test process.
@@ -25,7 +27,9 @@ def _forbidden(name: str) -> bool:
 def test_no_jax_or_reference_imports_in_source():
     files = [os.path.join(d, f) for d, _, fs in os.walk(PKG)
              for f in fs if f.endswith(".py")]
-    assert len(files) >= 8
+    assert len(files) >= 10
+    for must in ("_private/prng.py", "serve/draft.py"):
+        assert os.path.join(PKG, must) in files, must
     bad = []
     for path in files:
         with open(path) as fh:
@@ -77,6 +81,15 @@ try:
 finally:
     eng.shutdown()
 assert [o.shape for o in outs] == [(6,), (6,)], outs
+for kw in (dict(temperature=0.8), dict(spec_decode="ngram", paged=False)):
+    eng = DecodeEngine(params, cfg, slots=2, chunk=4, max_len=64,
+                       prompt_buckets=(8, 16), device="cpu", **kw)
+    try:
+        out = np.concatenate(list(eng.stream(
+            np.arange(7, dtype=np.int32), 9, seed=3)))
+    finally:
+        eng.shutdown()
+    assert out.shape == (9,) and (out < cfg.vocab_size).all(), (kw, out)
 tcfg = dataclasses.replace(cfg, attn_backend="flash", remat="dots")
 init, step = gpt.make_train_step(tcfg, device="cpu")
 state, metrics = step(init(seed=0), {"tokens": np.arange(
