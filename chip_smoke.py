@@ -30,31 +30,47 @@ Phases, each fatal on failure (non-zero exit, no result line):
    plain versions, SDPA forward and backward (a yardstick timed here
    only; the port never calls it) and the bound, with each kernel's
    achieved TFLOP/s;
-4. a small serving reference: the nano model at f32 served on the card
-   through K1 gives the same greedy tokens as on the CPU;
+4. a small serving reference: ``init_params(nano)`` on the card
+   bit-equal to the CPU's (the reference's weights), and the nano model
+   at f32 served on the card through K1 gives the same greedy tokens as
+   on the CPU;
 5. the engine at full GPT-2-small width (``CONFIGS["small"]``, bf16,
-   seeded random weights): 12 concurrent greedy requests through
+   the reference's random weights for seed 0, drawn on the card and
+   timed): 12 concurrent greedy requests through
    ``DecodeEngine(slots=16, chunk=8, max_len=1024, page_size=16,
    attn_kernel="cuda")`` — every stream completes, K1 ran
    ``n_layer * chunk`` times per dispatch, and streams match an
-   ``attn_kernel="gather"`` engine on the same card within the stated
-   divergence budget; then the same requests with 32 new tokens on an
-   int8 pool, and at f32 on fp and int8 pools, where kernel and gather
-   engines must agree stream for stream; then a profiled serve window;
+   ``attn_kernel="gather"`` engine on the same card wherever the f32
+   logits have no bf16 near-tie (``TIE_ERRS``); then the same requests
+   with 32 new tokens on an int8 pool, and at f32 on fp and int8 pools,
+   where kernel and gather engines must agree stream for stream; then a profiled serve window;
 6. sampling, the flat pool and speculative decoding (after the threefry
-   PRNG was held on the card right after phase 3: split, 32-bit draws
-   and uniform bit-equal to the CPU's for lanes from seeds 0, 1,
+   PRNG was held on the card right after phase 3: split, 32-bit draws,
+   uniform and normal bit-equal to the CPU's for lanes from seeds 0, 1,
    2**31-1 and -5 at the serving logits' shape [16, 50304], Gumbel noise
    within ``GUMBEL_ULPS``, and one ``_sample_slots`` call timed):
    temperature 0.8 with per-request seeds (nano f32 card+K1 against the
    CPU under the f32 budget; GPT-2 small bf16, the 12 requests twice,
    identical); the flat pool (``paged=False``) against the paged kernel
-   engine under the bf16 budget, nano f32 card equal to the CPU;
+   engine with bf16 near-ties only, nano f32 card equal to the CPU;
    speculative decoding with the n-gram and the model drafter
-   (``draft_k=4``, paged, K1) against the plain kernel engine under the
-   bf16 budget, with acceptance, tokens per round, TPOT and tok/s beside
+   (``draft_k=4``, paged, K1) against the plain kernel engine with bf16
+   near-ties only, with acceptance, tokens per round, TPOT and tok/s beside
    the plain engine's, a ``spec_threshold`` run that falls back to K1
    chunks, and nano f32 spec streams on the card equal to the CPU's;
+   then disaggregated prefill/decode on the 12 requests: a
+   ``role="prefill"`` engine hands each off and a ``role="decode"`` K1
+   engine imports it, paged to paged (fp and int8: every stream equal to
+   the colocated kernel engine's, K1 launched ``n_layer * chunk`` times
+   per decode dispatch, no fallback), flat to paged and paged to flat
+   (bf16 near-ties only), a torn payload (a counted fallback, the same stream),
+   nano f32 handoffs on the card equal to the CPU's at T=0 and 0.8, with
+   payload bytes per prompt token, the export and import pieces per
+   request and decode-side TTFT/TPOT; then the lifecycle: an injected
+   driver death, one ``supervise`` restart and a ``resume_from``
+   stream equal to the uninterrupted one, ``supervise`` False after a
+   second death, and ``drain`` of a busy engine (every stream equal to
+   the colocated kernel engine's);
 7. training: the flash and xla attention backends at full width (B=4,
    S=1024) from the same weights and batch (gradients and the loss
    after 2 steps within stated tolerances); nano at f32, 3 steps on the
@@ -82,22 +98,32 @@ KERNEL_TOL = 1e-2                  # bf16 output: ~1-2 ulp at |x| < 2
 # Kernel-engine vs gather-engine streams. Both sum in different orders,
 # so an attention output can round one bf16 ulp apart and a greedy
 # stream can part at a near-tie: random GPT-2-small weights give flat
-# logits. Chip run 2 of PR 1 measured 4 of 12 bf16 streams diverging (at
-# steps 4-45) and 3 of 6 int8 streams (at steps 2-15: a rounding
-# difference can also move a value across an int8 code boundary).
-# Budgets: every first token equal (prefill runs no kernel); at most half
-# the bf16 streams and three quarters of the int8 ones diverge; in f32,
-# where the two paths differ by ~1e-6 and a flip needs a logit gap that
-# small, at most one stream diverges, for fp and int8 pools alike.
-#
-# Speculative engines commit every token from the verify step, whose
-# batched GEMMs (16 slots x 5 positions) round differently from the
-# decode step's (16 x 1) in bf16, on top of gathered-einsum vs K1
-# attention: on the H100 (PERF.md) 7 of 12 bf16 spec streams parted
-# from the plain kernel engine (at steps 4-45), and 0 of 12 at f32
-# (spec vs plain, both drafters). Budget for bf16 spec streams: three
-# quarters, as int8; at f32 the f32 budget holds them to one stream.
-MAX_DIVERGED = {"bf16": 0.5, "int8": 0.75, "f32": 1, "spec_bf16": 0.75}
+# logits. How many of the 12 bf16 streams part is a property of the
+# weight draw (2 to 9 over 6 seeds of the reference's draw;
+# benchmarks/torch_bf16_divergence.py), so no count of parted streams
+# tells rounding from a small fault. A bf16 comparison holds each
+# parting instead (``tie_ratios``): at the first step where two streams
+# part, both tokens must lie within TIE_ERRS * eps of the top of the f32
+# logits of their shared context (prompt and common tokens; the served
+# weights in f32 arithmetic), where eps is the largest difference between
+# a bf16 and that f32 forward's logits there, over all 50,304. A
+# rounding parting's gap is the two engines' errors on the two tokens at
+# stake, a fraction of that largest error: over 38 such partings (6
+# draws) the largest gap was 0.68 eps, while a K1 that misses each
+# slot's newest key parted a stream at 2.0-7.2 eps and one whose output
+# is 3 % too large at 1.4-2.0 eps on every draw (PERF.md). So the bound
+# is eps itself, and a stream that parts at a clear margin fails
+# whatever the draw. This holds speculative engines too, whose verify
+# step's batched GEMMs (16 slots x 5 positions) round differently from
+# decode's (16 x 1).
+# Budgets by count remain where that reference does not apply: every
+# first token equal (prefill runs no kernel); at most three quarters of
+# the int8 streams diverge (a rounding difference can also move a value
+# across an int8 code boundary, which the f32 logits do not see); in
+# f32, where the two paths differ by ~1e-6 and a flip needs a logit gap
+# that small, at most one stream diverges, for fp and int8 pools alike.
+TIE_ERRS = 1.0
+MAX_DIVERGED = {"int8": 0.75, "f32": 1}
 
 SOURCE = "ray_tpu_torch/ops/csrc/paged_attention.cu"
 REPLACES = "ray_tpu/models/gpt_decode.py:1085"
@@ -765,15 +791,18 @@ def nano_train_phase() -> None:
 
 
 def serve(params, cfg, reqs, *, device, attn_kernel=None, seeds=None,
-          slots=16, chunk=8, max_len=1024, page_size=16, **engine_kw):
+          descs=None, slots=16, chunk=8, max_len=1024, page_size=16,
+          **engine_kw):
     """Queue every request (``seeds[i]`` seeds request i's PRNG lane),
-    start the driver, drain all streams from their own threads. Other
-    keywords go to the engine (``kv_dtype``, ``temperature``, ``paged``,
-    ``spec_decode``, ...). Returns (streams, ttft_s, tpot_s, wall_s,
-    stats)."""
+    start the driver, drain all streams from their own threads. With
+    ``descs`` (handoff descriptors, one per request) the requests are
+    admitted with ``admit_prefilled`` instead. Other keywords go to the
+    engine (``kv_dtype``, ``temperature``, ``paged``, ``spec_decode``,
+    ``role``, ...). Returns (streams, ttft_s, tpot_s, wall_s, stats)."""
     import numpy as np
     import torch
 
+    from ray_tpu_torch.serve._stream import _EngineStream
     from ray_tpu_torch.serve.engine import DecodeEngine
 
     eng = DecodeEngine(params, cfg, slots=slots, chunk=chunk,
@@ -782,8 +811,12 @@ def serve(params, cfg, reqs, *, device, attn_kernel=None, seeds=None,
                        auto_start=False, **engine_kw)
     seeds = seeds or [0] * len(reqs)
     try:
-        streams = [eng.stream(p, m, seed=s)
-                   for (p, m), s in zip(reqs, seeds)]
+        if descs is not None:
+            streams = [_EngineStream(eng.admit_prefilled(d))
+                       for d in descs]
+        else:
+            streams = [eng.stream(p, m, seed=s)
+                       for (p, m), s in zip(reqs, seeds)]
         outs = [[] for _ in reqs]
         stamps = [[] for _ in reqs]
         errors = []
@@ -869,18 +902,69 @@ def check_streams(name, toks, reqs, vocab):
                                  f"{t.shape} (want {(m,)})")
 
 
-def compare(name, got, ref, precision, what="kernel vs gather"):
+def parting_steps(got, ref) -> dict:
+    """{stream: first step where ``got`` and ``ref`` differ}."""
+    return {i: int((g != r).argmax())
+            for i, (g, r) in enumerate(zip(got, ref)) if not np_equal(g, r)}
+
+
+def tie_ratios(model, got, ref, parted) -> dict:
+    """{stream: the parting's distance from a tie}: at the first parting
+    step ``j`` of stream ``i``, the f32 logits ``L`` of the shared context
+    (``reqs[i]``'s prompt and ``ref[i][:j]``, through ``params`` upcast
+    to f32) give ``(max L - min(L[got], L[ref])) / (TIE_ERRS * eps)``,
+    where ``eps`` is the largest gap between the bf16 forward's logits
+    and ``L``. At most 1 is a near-tie (``TIE_ERRS``)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import gpt
+
+    params, cfg, reqs = model
+    c16 = dataclasses.replace(cfg, attn_backend="xla")
+    c32 = dataclasses.replace(c16, dtype=torch.float32)
+    p32 = {k: v.float() for k, v in params.items()}
+    out = {}
+    with torch.no_grad():
+        for i, j in parted.items():
+            ctx = np.concatenate([reqs[i][0], ref[i][:j]])[None]
+            l32 = gpt.forward(p32, ctx, c32)[0, -1]
+            eps = (gpt.forward(params, ctx, c16)[0, -1] - l32).abs().max()
+            gap = l32.max() - torch.minimum(l32[int(got[i][j])],
+                                            l32[int(ref[i][j])])
+            out[i] = float(gap / (TIE_ERRS * eps))
+    return out
+
+
+def compare(name, got, ref, precision, what="kernel vs gather",
+            model=None):
+    """Hold ``got`` against ``ref`` stream for stream: every first token
+    equal, and at bf16 every parting a near-tie of ``model`` = (params,
+    cfg, reqs) (``tie_ratios`` at most 1), else at most
+    ``MAX_DIVERGED[precision]`` streams parted."""
     firsts = all(g[0] == r[0] for g, r in zip(got, ref))
-    diverged = [i for i, (g, r) in enumerate(zip(got, ref))
-                if not np_equal(g, r)]
-    where = {i: int((got[i] != ref[i]).argmax()) for i in diverged}
+    where = parting_steps(got, ref)
+    if precision == "bf16":
+        ratios = tie_ratios(model, got, ref, where)
+        worst = max(ratios.values(), default=0.0)
+        shown = {i: round(r, 4) for i, r in ratios.items()}
+        log(f"{name}: {what} streams: {len(where)}/{len(got)} diverge, "
+            f"first divergence at {where}, distance from a tie {shown} "
+            f"(largest {worst:.4f}, bound 1), first tokens all equal: "
+            f"{firsts}")
+        if not firsts or not all(r <= 1 for r in ratios.values()):
+            raise AssertionError(f"{name}: {what}: a stream parts at more "
+                                 f"than a bf16 near-tie")
+        return
     budget = MAX_DIVERGED[precision]
     if isinstance(budget, float):
         budget = int(budget * len(got))
-    log(f"{name}: {what} streams: {len(diverged)}/{len(got)} "
+    log(f"{name}: {what} streams: {len(where)}/{len(got)} "
         f"diverge (budget {budget}), first divergence at {where}, first "
         f"tokens all equal: {firsts}")
-    if not firsts or len(diverged) > budget:
+    if not firsts or len(where) > budget:
         raise AssertionError(f"{name}: {what} outside the divergence "
                              f"budget")
 
@@ -895,8 +979,8 @@ SAMPLE_SHAPE = (16, 50304)          # the serving pool's logits
 
 
 def prng_phase(card: str) -> None:
-    """The threefry PRNG on the card: split, 32-bit draws and uniform
-    bit-equal to the CPU's, Gumbel noise within ``GUMBEL_ULPS``, for 16
+    """The threefry PRNG on the card: split, 32-bit draws, uniform and
+    normal bit-equal to the CPU's, Gumbel noise within ``GUMBEL_ULPS``, for 16
     lanes split from each of ``PRNG_SEEDS`` at the serving shape; then
     the device and host time of one ``_sample_slots`` call there."""
     import numpy as np
@@ -914,17 +998,20 @@ def prng_phase(card: str) -> None:
             k = lanes.to(dev)
             out[dev] = [t.cpu() for t in (
                 prng.split(k), prng.random_bits(k, (V,)),
-                prng.uniform(k, (V,)), prng.gumbel(k, (V,)))]
-        for name, a, b in zip(("split", "bits", "uniform"),
+                prng.uniform(k, (V,)), prng.normal(k, (V,)),
+                prng.gumbel(k, (V,)))]
+        for name, a, b in zip(("split", "bits", "uniform", "normal"),
                               out["cuda"], out["cpu"]):
+            if a.is_floating_point():           # bits, not values
+                a, b = a.view(torch.int32), b.view(torch.int32)
             if not torch.equal(a, b):
                 raise AssertionError(f"prng {name}, seed {seed}: the card "
                                      f"differs from the CPU")
-        g_cpu = out["cpu"][3].numpy()
-        ulps = np.abs(out["cuda"][3].numpy() - g_cpu) / (
+        g_cpu = out["cpu"][4].numpy()
+        ulps = np.abs(out["cuda"][4].numpy() - g_cpu) / (
             np.spacing(np.abs(g_cpu)) + 2.0 ** -23)
-        log(f"prng seed {seed}: split/bits/uniform bit-equal card vs CPU "
-            f"at [{B}, {V}]; gumbel worst {ulps.max():.3g} "
+        log(f"prng seed {seed}: split/bits/uniform/normal bit-equal card "
+            f"vs CPU at [{B}, {V}]; gumbel worst {ulps.max():.3g} "
             f"(ulp + 2**-23) units, {(ulps > 0).mean():.4f} of values "
             f"differ (bound {GUMBEL_ULPS})")
         if ulps.max() > GUMBEL_ULPS:
@@ -998,7 +1085,7 @@ def sampling_phase(params, cfg, reqs, nano_args, card) -> None:
 
 def flat_phase(params, cfg, reqs, greedy, nano_args, card) -> None:
     """The flat pool (``paged=False``): GPT-2 small bf16 on the 12-request
-    mix against the paged kernel engine's streams under the bf16 budget;
+    mix against the paged kernel engine's streams (bf16 near-ties only);
     nano f32 on the card equal to the CPU's."""
     import torch
 
@@ -1010,7 +1097,7 @@ def flat_phase(params, cfg, reqs, greedy, nano_args, card) -> None:
     if st["paged"] or st["completed"] != len(reqs):
         raise AssertionError(f"flat engine: {st}")
     compare("small bf16 flat", toks, greedy, "bf16",
-            what="flat vs paged-kernel")
+            what="flat vs paged-kernel", model=(params, cfg, reqs))
     log(f"small bf16 flat engine [{card}]: "
         f"{sum(map(len, toks)) / wall:.2f} tok/s; TPOT p50 "
         f"{p50(tpot) * 1e3:.3f} ms")
@@ -1027,13 +1114,13 @@ def spec_phase(params, cfg, reqs, greedy, greedy_stats, f32_args,
                nano_args, card) -> None:
     """Speculative decoding, GPT-2 small, paged, K1 engine, ``draft_k=4``,
     temperature 0, with each drafter: bf16 streams against the
-    non-speculative kernel engine's under the ``spec_bf16`` budget
-    (verify's arithmetic rounds differently from decode's, so the two
-    part at near-ties), acceptance, tokens per verify round, TPOT and
-    tok/s beside the plain engine's; the same at f32 (the f32 requests),
-    held to the f32 budget. Then a ``spec_threshold`` run that always
-    falls back to the chunk step (K1 from a spec engine), and nano f32
-    spec streams on the card equal to the CPU's."""
+    non-speculative kernel engine's, parting at bf16 near-ties only
+    (verify's arithmetic rounds differently from decode's), acceptance,
+    tokens per verify round, TPOT and tok/s beside the plain engine's;
+    the same at f32 (the f32 requests), held to the f32 budget. Then a
+    ``spec_threshold`` run that always falls back to the chunk step (K1
+    from a spec engine), and nano f32 spec streams on the card equal to
+    the CPU's."""
     import torch
 
     from ray_tpu_torch.ops import paged_attention as pa
@@ -1046,8 +1133,9 @@ def spec_phase(params, cfg, reqs, greedy, greedy_stats, f32_args,
                                         spec_decode=drafter, draft_k=4)
         check_streams(f"small bf16 spec {drafter}", toks, reqs,
                       cfg.vocab_size)
-        compare(f"small bf16 spec {drafter}", toks, greedy, "spec_bf16",
-                what="spec vs plain kernel engine")
+        compare(f"small bf16 spec {drafter}", toks, greedy, "bf16",
+                what="spec vs plain kernel engine",
+                model=(params, cfg, reqs))
         sp = st["spec"]
         log(f"small bf16 spec {drafter} [{card}]: acceptance "
             f"{sp['acceptance_rate']:.4f}, tokens per lane per verify "
@@ -1075,7 +1163,8 @@ def spec_phase(params, cfg, reqs, greedy, greedy_stats, f32_args,
         raise AssertionError(f"spec_threshold fallback: {sp}, K1 launches "
                              f"{pa.launches}")
     compare("small bf16 spec fallback", toks, greedy, "bf16",
-            what="fallback vs plain kernel engine")
+            what="fallback vs plain kernel engine",
+            model=(params, cfg, reqs))
     log(f"small bf16 spec fallback: {sp['fallback_rounds']} chunk rounds, "
         f"K1 launches {pa.launches}")
     p_nano, nano, small, kw = nano_args
@@ -1090,6 +1179,302 @@ def spec_phase(params, cfg, reqs, greedy, greedy_stats, f32_args,
     log("nano f32 spec (ngram, model): card streams == CPU streams")
 
 
+def handoffs(params, cfg, reqs, *, device, seeds=None, slots=16, chunk=8,
+             max_len=1024, page_size=16, **engine_kw):
+    """Hand every request off from a ``role="prefill"`` engine, one
+    after another in request order (``seeds[i]`` seeds request i).
+    Returns (descriptors, prefill engine stats)."""
+    from ray_tpu_torch.serve.engine import DecodeEngine
+
+    pre = DecodeEngine(params, cfg, slots=slots, chunk=chunk,
+                       max_len=max_len, page_size=page_size, device=device,
+                       role="prefill", **engine_kw)
+    seeds = seeds or [0] * len(reqs)
+    try:
+        descs = [pre.handoff(p, m, seed=s) for (p, m), s in zip(reqs, seeds)]
+        stats = pre.stats()
+    finally:
+        pre.shutdown()
+    if stats["handoff"]["exported"] != len(reqs) or \
+            stats["active_slots"] != 0:
+        raise AssertionError(f"prefill engine: {stats}")
+    return descs, stats
+
+
+class _HandoffClock:
+    """Host time of each call of the handoff's pieces while active: the
+    export's device copy (the on-device gather and trim, then the copy to
+    the host), the digest on both sides (``build_payload`` and
+    ``verify_payload``), and the import's scatter. Device work is
+    synchronised inside the clock, which the engine alone would not do,
+    so the pieces are not pipelined here."""
+
+    PIECES = (("gpt_decode", "export_slot_kv", "copy", True),
+              ("gpt_decode", "export_slot_kv_paged", "copy", True),
+              ("gpt_decode", "kv_to_host", "copy", False),
+              ("handoff", "build_payload", "digest_out", False),
+              ("handoff", "verify_payload", "digest_in", False),
+              ("gpt_decode", "import_slot_kv", "scatter", True),
+              ("gpt_decode", "import_slot_kv_paged", "scatter", True))
+
+    def __init__(self):
+        self.calls = {}
+
+    def __enter__(self):
+        import torch
+
+        from ray_tpu_torch.models import gpt_decode
+        from ray_tpu_torch.serve import handoff
+
+        mods = {"gpt_decode": gpt_decode, "handoff": handoff}
+        self._saved = []
+        for mod, name, piece, sync in self.PIECES:
+            fn = getattr(mods[mod], name)
+            self._saved.append((mods[mod], name, fn))
+
+            def timed(*a, _fn=fn, _piece=piece, _sync=sync, **kw):
+                t0 = time.perf_counter()
+                out = _fn(*a, **kw)
+                if _sync:
+                    torch.cuda.synchronize()
+                self.calls.setdefault(_piece, []).append(
+                    time.perf_counter() - t0)
+                return out
+            setattr(mods[mod], name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+    def per_request(self, piece, n):
+        """p50 over requests of the time ``piece`` took per request (the
+        export's copy is two calls per request: gather, then host)."""
+        xs = self.calls.get(piece, [])
+        k = max(len(xs) // n, 1)
+        return p50([sum(xs[i:i + k]) for i in range(0, len(xs), k)])
+
+
+def handoff_phase(params, cfg, reqs, greedy, greedy_times, reqs32, greedy8,
+                  nano_args, card) -> None:
+    """Disaggregated prefill/decode at GPT-2-small width (bf16), the 12
+    serving requests. Paged to paged, fp and int8: a prefill-role engine
+    hands every request off, a decode-role kernel engine imports and
+    finishes them, each stream token-identical to the colocated kernel
+    engine's of the same pool kind, K1 launched ``n_layer * chunk`` times
+    per decode dispatch, no fallback. Flat to paged and paged to flat
+    part at bf16 near-ties only. A torn payload falls back to a local
+    prefill, counted, the same stream. Nano f32: the handoff on the card equals
+    the same on the CPU at T=0 and seeded T=0.8. Prints payload bytes per
+    prompt token, the export and import pieces per request, and
+    decode-side TTFT/TPOT against the colocated engine."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    dev = torch.device("cuda")
+    n = len(reqs)
+    g_ttft, g_tpot = greedy_times
+
+    def decode(descs, rq, **kw):
+        pa.launches = 0
+        out = serve(params, cfg, rq, device=dev, descs=descs, role="decode",
+                    **kw)
+        st = out[4]
+        ho = st["handoff"]
+        if ho["imported"] != len(rq) or ho["import_fallbacks"] or \
+                st["completed"] != len(rq):
+            raise AssertionError(f"decode engine {kw}: {ho}, completed "
+                                 f"{st['completed']}")
+        if kw.get("paged", True):
+            want = cfg.n_layer * 8 * st["dispatches"]
+            if pa.launches != want or not pa.launches:
+                raise AssertionError(f"decode engine {kw}: K1 launches "
+                                     f"{pa.launches}, want {want}")
+        return out
+
+    clock = _HandoffClock()
+    with clock:
+        descs, _ = handoffs(params, cfg, reqs, device=dev, attn_kernel="cuda")
+        toks, ttft, tpot, wall, st = decode(descs, reqs, attn_kernel="cuda")
+    per_tok = {d["nbytes"] / d["pos"] for d in descs}
+    check_streams("handoff paged fp", toks, reqs, cfg.vocab_size)
+    same = [np_equal(a, b) for a, b in zip(toks, greedy)]
+    log(f"handoff paged->paged fp [{card}]: {sum(same)}/{n} streams "
+        f"token-identical to the colocated kernel engine; K1 launches "
+        f"{pa.launches} ({st['dispatches']} decode dispatches); payload "
+        f"bytes per prompt token {sorted(per_tok)} (expected "
+        f"{2 * cfg.n_layer * cfg.d_model * 2}); "
+        f"{sum(d['nbytes'] for d in descs)} bytes shipped")
+    if not all(same):
+        raise AssertionError("handoff paged fp: streams differ from the "
+                             "colocated kernel engine")
+    if per_tok != {2 * cfg.n_layer * cfg.d_model * 2}:
+        raise AssertionError(f"payload bytes per token {per_tok}")
+    log(f"handoff pieces per request [{card}] (host clock, p50 of {n}; "
+        f"device work synchronised): export device copy "
+        f"{clock.per_request('copy', n) * 1e3:.3f} ms, export digest "
+        f"{clock.per_request('digest_out', n) * 1e3:.3f} ms; import digest "
+        f"{clock.per_request('digest_in', n) * 1e3:.3f} ms, import scatter "
+        f"{clock.per_request('scatter', n) * 1e3:.3f} ms")
+    log(f"handoff decode side [{card}]: TTFT p50 {p50(ttft) * 1e3:.3f} ms "
+        f"(colocated {g_ttft * 1e3:.3f}), TPOT p50 {p50(tpot) * 1e3:.3f} ms "
+        f"(colocated {g_tpot * 1e3:.3f}); {sum(map(len, toks)) / wall:.2f} "
+        f"tok/s")
+
+    descs8, _ = handoffs(params, cfg, reqs32, device=dev, attn_kernel="cuda",
+                         kv_dtype="int8")
+    toks8, _, tpot8, _, st8 = decode(descs8, reqs32, attn_kernel="cuda",
+                                     kv_dtype="int8")
+    same8 = [np_equal(a, b) for a, b in zip(toks8, greedy8)]
+    log(f"handoff paged->paged int8 [{card}]: {sum(same8)}/{n} streams "
+        f"token-identical to the colocated int8 kernel engine; K1 launches "
+        f"{pa.launches}; payload bytes per prompt token "
+        f"{sorted({d['nbytes'] / d['pos'] for d in descs8})}; TPOT p50 "
+        f"{p50(tpot8) * 1e3:.3f} ms")
+    if not all(same8):
+        raise AssertionError("handoff paged int8: streams differ from the "
+                             "colocated kernel engine")
+
+    descs_flat, _ = handoffs(params, cfg, reqs, device=dev, paged=False)
+    got, *_ = decode(descs_flat, reqs, attn_kernel="cuda")
+    compare("handoff flat->paged", got, greedy, "bf16",
+            what="flat prefill + paged K1 decode vs colocated kernel engine",
+            model=(params, cfg, reqs))
+    got, *_ = decode(descs, reqs, paged=False)
+    compare("handoff paged->flat", got, greedy, "bf16",
+            what="paged prefill + flat decode vs colocated kernel engine",
+            model=(params, cfg, reqs))
+
+    torn = dict(descs[0], payload=dict(descs[0]["payload"]))
+    torn["payload"]["k"] = torn["payload"]["k"].copy()
+    torn["payload"]["k"][0, 0] ^= 0x5555
+    out, _, _, _, st = serve(params, cfg, reqs[:1], device=dev,
+                             descs=[torn], role="decode",
+                             attn_kernel="cuda")
+    ho = st["handoff"]
+    if ho["import_fallbacks"] != 1 or ho["imported"] or \
+            not np_equal(out[0], greedy[0]):
+        raise AssertionError(f"torn payload: {ho}, stream equal "
+                             f"{np_equal(out[0], greedy[0])}")
+    log("handoff torn payload: fell back to a local prefill (counted), "
+        "stream identical to the colocated one")
+
+    p_nano, nano, small, kw = nano_args
+    seeds = [3, 5, 2 ** 31 - 1, -7]
+    for temp in (0.0, 0.8):
+        runs = {}
+        for d in ("cpu", "cuda"):
+            device = torch.device(d)
+            k1 = "cuda" if d == "cuda" else "gather"
+            ds, _ = handoffs(p_nano, nano, small, device=device, seeds=seeds,
+                             temperature=temp, attn_kernel=k1, **kw)
+            runs[d], *_ = serve(p_nano, nano, small, device=device,
+                                descs=ds, role="decode", temperature=temp,
+                                attn_kernel=k1, **kw)
+        if not all(np_equal(a, b) for a, b in zip(runs["cuda"],
+                                                   runs["cpu"])):
+            raise AssertionError(f"nano f32 handoff T={temp}: card streams "
+                                 f"differ from the CPU's")
+    log("nano f32 handoff (T=0, seeded T=0.8): card streams == CPU streams")
+
+
+def lifecycle_phase(params, cfg, reqs, greedy, card) -> None:
+    """The card engine's lifecycle (GPT-2 small, bf16, paged, K1): an
+    uninterrupted stream, then the same request with ``driver_die``
+    injected mid-stream; ``supervise`` restarts the driver once and the
+    ``resume_from`` resubmission completes the stream identically; a
+    second death makes ``supervise`` report False. Then ``drain`` on an
+    engine running the 12 requests: a new submission is refused, the
+    running lanes finish, each stream equal to the colocated kernel
+    engine's (the same K1 engine and admission order)."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.serve.engine import (DecodeEngine, EngineRestartError,
+                                            EngineShutdownError)
+
+    dev = torch.device("cuda")
+    kw = dict(slots=16, chunk=8, max_len=1024, page_size=16,
+              attn_kernel="cuda", device=dev)
+    eng = DecodeEngine(params, cfg, **kw)
+    prompt, m = reqs[0]
+    log("lifecycle: each injected driver death prints its traceback "
+        "(the driver thread re-raises it, by design)")
+    try:
+        solo = np.concatenate(list(eng.stream(prompt, m)))
+        eng.inject_fault("driver_die",
+                         at_tokens=eng.stats()["tokens"] + m // 2)
+        toks = []
+        try:
+            for piece in eng.stream(prompt, m):
+                toks.extend(int(t) for t in piece)
+        except EngineRestartError:
+            pass
+        if not 0 < len(toks) < m:
+            raise AssertionError(f"driver_die: {len(toks)} of {m} tokens "
+                                 f"before the death")
+        deadline = time.monotonic() + 60
+        while eng.stats()["driver_restarts"] == 0:
+            if not eng.supervise() or time.monotonic() > deadline:
+                raise AssertionError("supervise did not restart the driver")
+            time.sleep(0.02)
+        tail = np.concatenate(list(eng.stream(prompt, m,
+                                              resume_from=len(toks))))
+        joined = np.concatenate([np.asarray(toks, np.int32), tail])
+        if not np_equal(joined, solo):
+            raise AssertionError("resumed stream differs from the "
+                                 "uninterrupted one")
+        eng.inject_fault("driver_die", at_tokens=0)
+        try:
+            list(eng.stream(prompt, 8))
+            raise AssertionError("second driver death did not fail the lane")
+        except EngineRestartError:
+            pass
+        eng._thread.join(timeout=30)
+        if eng.supervise() is not False:
+            raise AssertionError("supervise after a second death is not "
+                                 "False")
+    finally:
+        eng.shutdown()
+    log(f"lifecycle [{card}]: driver death after {len(toks)} of {m} tokens, "
+        f"one restart, resume_from={len(toks)} stream == uninterrupted "
+        f"(== colocated stream: {np_equal(solo, greedy[0])}); second death: "
+        f"supervise() False")
+
+    eng = DecodeEngine(params, cfg, **kw)
+    try:
+        lanes = [eng.stream(p, mm) for p, mm in reqs]
+        firsts = [next(s) for s in lanes]
+        done = {}
+        t = threading.Thread(target=lambda: done.setdefault(
+            "ok", eng.drain(timeout_s=300)), daemon=True)
+        t.start()
+        while not eng.stats()["draining"]:
+            time.sleep(0.001)
+        try:
+            eng.submit(prompt, 4)
+            raise AssertionError("drain: a new submission was accepted")
+        except EngineShutdownError:
+            pass
+        outs = [np.concatenate([f] + list(s))
+                for f, s in zip(firsts, lanes)]
+        t.join(timeout=300)
+    finally:
+        eng.shutdown()
+    if done.get("ok") is not True:
+        raise AssertionError(f"drain returned {done}")
+    check_streams("drain", outs, reqs, cfg.vocab_size)
+    same = [np_equal(a, b) for a, b in zip(outs, greedy)]
+    log(f"drain [{card}]: new submission refused, {len(outs)} running lanes "
+        f"finished, drain() True; {sum(same)}/{len(outs)} streams "
+        f"token-identical to the colocated kernel engine")
+    if not all(same):
+        raise AssertionError("drain: streams differ from the colocated "
+                             "kernel engine")
+
+
 def np_equal(a, b):
     return a.shape == b.shape and bool((a == b).all())
 
@@ -1098,6 +1483,21 @@ def p50(xs):
     import numpy as np
 
     return float(np.percentile(np.asarray(xs), 50))
+
+
+def serving_requests():
+    """The serving phases' 12 requests: prompts of 16-512 tokens, two of
+    them sharing a 250-token prefix, 32-64 new tokens each."""
+    import numpy as np
+
+    rng = np.random.default_rng(4)
+    sysp = rng.integers(0, 50257, (250,)).astype(np.int32)
+    lens = [16, 24, 48, 64, 96, 128, 200, 320, 400, 512]
+    prompts = [rng.integers(0, 50257, (n,)).astype(np.int32) for n in lens]
+    prompts += [np.concatenate([sysp, rng.integers(0, 50257, (n,))]
+                               ).astype(np.int32) for n in (40, 60)]
+    return [(p, int(m)) for p, m in
+            zip(prompts, rng.integers(32, 65, len(prompts)))]
 
 
 def main() -> int:
@@ -1136,6 +1536,13 @@ def main() -> int:
              for n in (5, 16, 33, 70)]
     kw = dict(slots=4, chunk=4, max_len=128, page_size=8)
     p_cpu = gpt.init_params(nano, seed=0, device="cpu")
+    p_card = gpt.init_params(nano, seed=0, device="cuda")
+    if not all(torch.equal(p_card[k].cpu().view(torch.int32),
+                           v.view(torch.int32)) for k, v in p_cpu.items()):
+        raise AssertionError("init_params(nano): the card's draw differs "
+                             "from the CPU's")
+    log("init_params(nano, seed 0): the card's weights bit-equal to the "
+        "CPU's (which equal the reference's, tests/test_torch_init_params.py)")
     ref, *_ = serve(p_cpu, nano, small, device=torch.device("cpu"),
                     attn_kernel="gather", **kw)
     got, *_ = serve(p_cpu, nano, small, device=torch.device("cuda"),
@@ -1150,16 +1557,15 @@ def main() -> int:
 
     # ---- 5. the engine at GPT-2-small width
     cfg = gpt.CONFIGS["small"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     params = gpt.init_params(cfg, seed=0, device="cuda",
                              dtype=torch.bfloat16)
-    rng = np.random.default_rng(4)
-    sysp = rng.integers(0, 50257, (250,)).astype(np.int32)
-    lens = [16, 24, 48, 64, 96, 128, 200, 320, 400, 512]
-    prompts = [rng.integers(0, 50257, (n,)).astype(np.int32) for n in lens]
-    prompts += [np.concatenate([sysp, rng.integers(0, 50257, (n,))]
-                               ).astype(np.int32) for n in (40, 60)]
-    reqs = [(p, int(m)) for p, m in
-            zip(prompts, rng.integers(32, 65, len(prompts)))]
+    torch.cuda.synchronize()
+    log(f"init_params GPT-2 small (the reference's draw for seed 0, bf16 "
+        f"storage) on the card [{card}]: {time.perf_counter() - t0:.3f} s "
+        f"for {sum(p.numel() for p in params.values())} weights")
+    reqs = serving_requests()
     dev = torch.device("cuda")
     # Warm cuBLAS and the allocator on a throwaway run.
     serve(params, cfg, reqs[:2], device=dev, attn_kernel="gather")
@@ -1182,7 +1588,7 @@ def main() -> int:
     if launches_fp != want or launches_fp == 0:
         raise AssertionError("the kernel did not run on every decode step")
     check_streams("small bf16 gather", ref, reqs, cfg.vocab_size)
-    compare("small bf16", toks, ref, "bf16")
+    compare("small bf16", toks, ref, "bf16", model=(params, cfg, reqs))
     n_tok = sum(len(t) for t in toks)
     log(f"small bf16 engine [{card}]: {len(reqs)} requests, {n_tok} "
         f"tokens in {wall:.4f} s = {n_tok / wall:.2f} tok/s; TTFT p50 "
@@ -1238,6 +1644,11 @@ def main() -> int:
     flat_phase(params, cfg, reqs, toks, nano_args, card)
     spec_phase(params, cfg, reqs, toks, (p50(tpot), n_tok / wall),
                (params32, cfg32, reqs32, plain32["fp"]), nano_args, card)
+
+    # ---- 6b. disaggregated prefill/decode, the engine's lifecycle
+    handoff_phase(params, cfg, reqs, toks, (p50(ttft), p50(tpot)), reqs32,
+                  toks8, nano_args, card)
+    lifecycle_phase(params, cfg, reqs, toks, card)
     del params, params32
     torch.cuda.empty_cache()
 

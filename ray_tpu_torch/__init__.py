@@ -9,9 +9,10 @@ found under the same name:
   remat policies, loss and ``make_train_step``;
 - :mod:`ray_tpu_torch.models.gpt_decode` — flat and paged KV pools
   (prefill with prefix COW, k-step decode, int8 KV), greedy and seeded
-  sampling, and the speculative verify step;
+  sampling, the speculative verify step, and KV export/import;
 - :mod:`ray_tpu_torch._private.prng` — threefry2x32, bit-exact with
-  ``jax.random`` (``PRNGKey``, ``split``, ``uniform``, ``categorical``);
+  ``jax.random`` (``PRNGKey``, ``split``, ``uniform``, ``categorical``,
+  ``normal``), so ``init_params`` draws the reference's weights;
 - :mod:`ray_tpu_torch.ops.paged_attention` — the paged decode-attention
   kernel, hand-written CUDA C++ for Hopper (``sm_90a``), plus its plain
   PyTorch version;
@@ -23,12 +24,15 @@ found under the same name:
 - :mod:`ray_tpu_torch.serve.engine` — the continuous-batching
   :class:`~ray_tpu_torch.serve.engine.DecodeEngine` (paged or flat pool,
   temperature > 0 with per-request seeds, ``resume_from`` replay,
-  speculative decoding);
+  speculative decoding, prefill/decode roles with KV handoff, driver
+  supervision with epochs, drain, and the config plane);
+- :mod:`ray_tpu_torch.serve.handoff` — handoff payloads, their SHA-256
+  digest and leases (inline shipping only);
 - :mod:`ray_tpu_torch.serve.draft` — the n-gram and model drafters.
 
-Not ported yet: KV export/import (disaggregated prefill/decode), tensor
-parallelism, the serve front (replicas, supervision, tracing, metrics),
-and everything outside the GPT model's decode and training step.
+Not ported yet: tensor parallelism, the serve front (replicas, routing,
+tracing, metrics), and everything outside the GPT model's decode and
+training step.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card and without that argument they raise.

@@ -2,13 +2,14 @@
 implementation, so a seeded request samples the same tokens as the
 reference.
 
-The reference draws with four operations: ``PRNGKey``, ``split``,
+The reference draws with five operations: ``PRNGKey``, ``split``,
 ``uniform`` and ``categorical`` (``gpt_decode.py:443``, ``:737``,
-``:1549``). They are reimplemented here from JAX's own definitions
-(``jax/_src/prng.py``: ``threefry_seed``, ``iota_2x32_shape``,
-``threefry_2x32``, ``_threefry_split_foldlike``,
-``_threefry_random_bits_partitionable``; ``jax/_src/random.py``:
-``_uniform``, ``_gumbel``, ``categorical``), under the settings the
+``:1549``), and ``normal`` for its weights (``gpt.py:86``). They are
+reimplemented here from JAX's own definitions (``jax/_src/prng.py``:
+``threefry_seed``, ``iota_2x32_shape``, ``threefry_2x32``,
+``_threefry_split_foldlike``, ``_threefry_random_bits_partitionable``;
+``jax/_src/random.py``: ``_uniform``, ``_gumbel``, ``categorical``,
+``_normal_real``), under the settings the
 reference runs with: ``jax_threefry_partitionable=True`` (fold-like
 split, 32-bit draws ``bits1 ^ bits2`` over a 64-bit counter) and 64-bit
 mode off (a seed keeps its low 32 bits).
@@ -107,6 +108,154 @@ def uniform(key: torch.Tensor, shape: Sequence[int] = (),
     lo = np.float32(minval)
     span = float(np.float32(maxval) - lo)
     return torch.clamp_min(floats * span + float(lo), float(lo))
+
+
+# ``normal`` is ``sqrt(2) * erf_inv(u)``, and ``lax.erf_inv`` is neither
+# ``torch.erfinv`` nor Giles' polynomial over ``torch.log1p``: XLA's CPU
+# backend lowers it to its own f32 sequence, with its own ``log1p``. The
+# functions below are that sequence, operation for operation, taken from
+# what XLA emits for ``jax.jit(lax.erf_inv)`` on f32 (jax 0.9.0, x86-64,
+# ``XLA_FLAGS=--xla_dump_to=DIR``): the order of operations and the
+# constants from ``*.jit_erf_inv.*.ir-with-opt.ll`` (``@xla.log1p.f32``
+# is inlined there; its hex floats are written here as float32 bit
+# patterns), and the fused multiply-adds from the object file beside it
+# (``objdump -d``: ``vfmadd*ps``). XLA's CPU compiler lets LLVM contract
+# a multiply into the add that is its only use, so every Horner step is
+# one FMA: :func:`_fma` rounds those once, and every other step is one
+# separately rounded f32 torch op, on the CPU and on the card alike.
+
+
+def _fma(a, b, c) -> torch.Tensor:
+    """``a * b + c`` for float32 values, rounded once to float32, as an
+    FMA instruction rounds it. The product is exact in float64; the sum
+    is rounded there to odd (round to nearest, then an inexact result
+    with an even last bit steps one ulp toward the exact value, whose
+    error TwoSum gives exactly), and rounding a round-to-odd float64 to
+    float32 is correct rounding (53 >= 2 * 24 + 2 bits)."""
+    def d(v):
+        return v.double() if isinstance(v, torch.Tensor) else float(v)
+
+    p = d(a) * d(b)
+    cd = d(c)
+    s = p + cd
+    t = s - p
+    err = (p - (s - t)) + (cd - t)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, float("inf"), float("-inf")).double()
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root. ``torch.sqrt`` on the CPU
+    (vectorised through MKL) is not: it rounds 0.7 % of float32 inputs
+    the other way, where XLA's ``vsqrtps`` is exact. The float64 root is
+    within one float32 ulp of the answer; the midpoints on either side,
+    squared exactly in float64, say which neighbour is right."""
+    c = torch.sqrt(x.double()).float()
+    xd = x.double()
+    up = torch.nextafter(c, torch.full_like(c, float("inf")))
+    dn = torch.nextafter(c, torch.full_like(c, float("-inf")))
+    hi = (c.double() + up.double()) * 0.5
+    lo = (c.double() + dn.double()) * 0.5
+    return torch.where(hi * hi < xd, up, torch.where(lo * lo > xd, dn, c))
+
+
+def _f32(bits: int) -> float:
+    """The float32 with these bits, as an exact Python float."""
+    return float(np.uint32(bits).view(np.float32))
+
+
+#: log1p's small-argument branch: a ratio of two degree-6 polynomials in
+#: x (numerator from a zero leading term, as the IR has it).
+_LOG1P_NUM = (0x00000000, 0x3F800000, 0x417101AD, 0x42A6185B, 0x435DC32D,
+              0x439A8CA3, 0x43586D8A, 0x42707982)
+_LOG1P_DEN = (0x383DE04B, 0x3EFF40C5, 0x40D284FA, 0x41EF4B9C, 0x4273CC76,
+              0x426473AD, 0x41A05101)
+#: |x| below this (0.41421357, sqrt 2 - 1) takes the small branch.
+_LOG1P_SMALL = 0x3ED413CD
+#: The log branch (Cephes' logf): mantissa split at sqrt(1/2), three
+#: pairs of coefficients, and ln 2 in two parts.
+_LOG_SQRTHF = 0x3F3504F3
+_LOG_P = ((0x3D9021BB, 0xBDEBD1B8, 0x3DEF251A),
+          (0xBDFE5D4F, 0x3E11E9BF, 0xBE2AAE50),
+          (0x3E4CCEAC, 0xBE7FFFFC, 0x3EAAAAAA))
+_LN2_LO = 0xB95E8083
+_LN2_HI = 0x3F318000
+#: erf_inv's Giles coefficients, (w < 5, w >= 5) pairs, highest first.
+_ERFINV_C = ((0x32F16588, 0xB951F09B), (0x34B84B36, 0x38D3B56B),
+             (0xB66C7357, 0x3AB0DC72), (0xB6935AC1, 0xBB70BDE7),
+             (0x396532DB, 0x3BBC127B), (0xBAA45408, 0xBBF9C5D7),
+             (0xBB88E4EF, 0x3C1AA57E), (0x3E7C8F63, 0x3F8036DB),
+             (0x3FC02E2F, 0x40354F7E))
+_SQRT2 = float(np.float32(np.sqrt(2)))
+
+
+def _log1p(x: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU ``log1p`` for float32 (``@xla.log1p.f32``)."""
+    # Small |x|: x - x^2/2 + x^3 * num(x) / den(x); x^2 has two uses, so
+    # its multiply stays unfused (the -0.5 scaling is exact either way).
+    x2 = x * x
+    zero = x * 0.0
+    num = zero + _f32(_LOG1P_NUM[1])
+    for c in _LOG1P_NUM[2:]:
+        num = _fma(num, x, _f32(c))
+    den = zero + _f32(_LOG1P_DEN[0])
+    for c in _LOG1P_DEN[1:]:
+        den = _fma(den, x, _f32(c))
+    small = x + _fma(x2, -0.5, (x * x2) * (den / num))
+    # Otherwise log(1 + x): exponent and mantissa in [0.5, 1) from the
+    # bits of max(1 + x, FLT_MIN), the mantissa folded at sqrt(1/2).
+    y = x + 1.0
+    m = torch.where(y > _TINY, y, _TINY)
+    bits = m.view(torch.int32)
+    f = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)
+    e = ((bits >> 23) - 127).to(torch.float32) + 1.0
+    lo = f < _f32(_LOG_SQRTHF)
+    e = e - torch.where(lo, 1.0, 0.0)
+    r = (f + -1.0) + torch.where(lo, f, 0.0)
+    z = r * r
+    r3 = z * r
+    (a1, a2, a3), (b1, b2, b3), (c1, c2, c3) = _LOG_P
+    pa = _fma(_fma(r, _f32(a1), _f32(a2)), r, _f32(a3))
+    pb = _fma(_fma(r, _f32(b1), _f32(b2)), r, _f32(b3))
+    pc = _fma(_fma(r, _f32(c1), _f32(c2)), r, _f32(c3))
+    t = _fma(_fma(_fma(pa, r3, pb), r3, pc), r3, e * _f32(_LN2_LO))
+    # z * 0.5 and e * ln2_hi (9 significant bits times a small integer)
+    # are exact: fused or not, these two round once.
+    big = ((r - z * 0.5) + t) + e * _f32(_LN2_HI)
+    # The IR's special cases, by value: -inf at y == 0, +inf at y ==
+    # inf, NaN for y < 0 or NaN.
+    big = torch.where((y <= 0) | torch.isnan(y), float("nan"), big)
+    big = torch.where(y == float("inf"), float("inf"), big)
+    big = torch.where(y == 0, float("-inf"), big)
+    return torch.where(x.abs() < _f32(_LOG1P_SMALL), small, big)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """``lax.erf_inv`` for float32 as XLA's CPU backend computes it:
+    Giles' single-precision approximation over :func:`_log1p`, with
+    ``erf_inv(+-1) = +-inf``."""
+    lg = _log1p(x * -x)                  # -w
+    lt = lg > -5.0                       # w < 5
+    w = torch.where(lt, -2.5 - lg, _sqrt(-lg) + -3.0)
+
+    def coeff(i):
+        a, b = _ERFINV_C[i]
+        return torch.where(lt, _f32(a), _f32(b))
+
+    p = _fma(coeff(0), w, coeff(1))
+    for i in range(2, len(_ERFINV_C)):
+        p = _fma(w, p, coeff(i))
+    return x * torch.where(x.abs() == 1.0, float("inf"), p)
+
+
+def normal(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """Float32 standard normals ``[..., *shape]``, bit-equal to
+    ``jax.random.normal`` (``random.py:_normal_real``): ``sqrt(2) *
+    erf_inv(u)`` with ``u`` uniform in ``[nextafter(-1, 0), 1)``."""
+    lo = float(np.nextafter(np.float32(-1), np.float32(0)))
+    return _SQRT2 * erf_inv(uniform(key, shape, lo, 1.0))
 
 
 def gumbel(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:

@@ -42,6 +42,7 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from .._private import prng
 from .._private.device import (DeviceLike, resolve_device,
                                set_matmul_precision)
 from ..ops.flash_attention import flash_attention
@@ -127,36 +128,47 @@ CONFIGS = {
 
 def init_params(cfg: GPTConfig, seed: int = 0, device: DeviceLike = None,
                 dtype: Optional[torch.dtype] = None) -> Params:
-    """Random weights with the reference's shapes and scales
-    (``gpt.py:95-137``), drawn from a seeded CPU ``torch.Generator`` so a
-    seed gives the same weights on any device. Not bit-identical to
-    ``jax.random``; tests that compare the two packages load the JAX
-    weights through :func:`params_from_numpy` instead. ``dtype`` is the
-    storage dtype (default ``cfg.param_dtype``); storing in the compute
-    dtype changes no result, since every use casts to it first."""
+    """The reference's random weights for ``jax.random.PRNGKey(seed)``
+    (``gpt.py:89-137``), bit for bit: the same key schedule (``split(key,
+    8)``; each stacked weight from ``split(keys[i], n_layer)``, one draw
+    per layer) and the same float32 ``normal * scale`` draws, through the
+    port's threefry (:func:`ray_tpu_torch._private.prng.normal`), made on
+    ``device``. ``dtype`` is the storage dtype (default
+    ``cfg.param_dtype``); every draw is cast to it once, and storing in
+    the compute dtype changes no result, since every use casts to it
+    first."""
     dev = resolve_device(device)
     dtype = dtype or cfg.param_dtype
-    gen = torch.Generator().manual_seed(int(seed))
     d, f, L = cfg.d_model, cfg.d_ff, cfg.n_layer
+    root = torch.from_numpy(prng.PRNGKey(seed).astype(np.int64)).to(dev)
+    keys = prng.split(root, 8)
 
-    def normal(shape, scale):
-        return torch.randn(shape, generator=gen) * scale
+    def draw(key, shape, scale=None):
+        # _dense_init: normal * (scale or 1/sqrt(fan_in)), in float32.
+        if scale is None:
+            scale = 1.0 / math.sqrt(shape[0])
+        return (prng.normal(key, shape) * float(np.float32(scale))
+                ).to(dtype)
+
+    def stack(key, shape, scale=None):
+        # [L] layer keys draw [L, *shape] at once: each lane hashes its
+        # own key over the same counter, as one draw per layer does.
+        return draw(prng.split(key, L), shape, scale)
 
     resid = 1.0 / math.sqrt(2 * L * d)
-    params = {
-        "embed": normal((cfg.vocab_size, d), 0.02),
-        "pos_embed": normal((cfg.max_seq, d), 0.01),
-        "ln1_scale": torch.ones(L, d),
-        "ln2_scale": torch.ones(L, d),
-        "wq": normal((L, d, d), 1.0 / math.sqrt(d)),
-        "wk": normal((L, d, d), 1.0 / math.sqrt(d)),
-        "wv": normal((L, d, d), 1.0 / math.sqrt(d)),
-        "wo": normal((L, d, d), resid),
-        "w1": normal((L, d, f), 1.0 / math.sqrt(d)),
-        "w2": normal((L, f, d), resid),
-        "ln_f_scale": torch.ones(d),
+    return {
+        "embed": draw(keys[0], (cfg.vocab_size, d), 0.02),
+        "pos_embed": draw(keys[1], (cfg.max_seq, d), 0.01),
+        "ln1_scale": torch.ones(L, d, dtype=dtype, device=dev),
+        "ln2_scale": torch.ones(L, d, dtype=dtype, device=dev),
+        "wq": stack(keys[2], (d, d)),
+        "wk": stack(keys[3], (d, d)),
+        "wv": stack(keys[4], (d, d)),
+        "wo": stack(keys[5], (d, d), resid),
+        "w1": stack(keys[6], (d, f)),
+        "w2": stack(keys[7], (f, d), resid),
+        "ln_f_scale": torch.ones(d, dtype=dtype, device=dev),
     }
-    return {k: v.to(device=dev, dtype=dtype) for k, v in params.items()}
 
 
 def params_from_numpy(tree: Mapping, device: DeviceLike = None,

@@ -1,6 +1,6 @@
 """KV-cache decoding for the GPT model: the port of
 ``ray_tpu/models/gpt_decode.py`` (flat pool, paged pool, speculative
-verify).
+verify, KV handoff).
 
 The device half of :class:`~ray_tpu_torch.serve.engine.DecodeEngine`:
 
@@ -24,6 +24,14 @@ The device half of :class:`~ray_tpu_torch.serve.engine.DecodeEngine`:
   :func:`verify_chunk_slots` / :func:`verify_chunk_slots_paged` score a
   drafter's k proposals per slot in one batched forward and commit the
   accepted prefix plus a correction/bonus token (:func:`_spec_accept`).
+- **KV handoff** (``gpt_decode.py:1781-1876``): :func:`export_slot_kv` /
+  :func:`export_slot_kv_paged` copy one slot's K/V out of a pool (with
+  ``length``, trimmed and page-gathered on the device, so only the
+  shipped bytes reach the host) and :func:`import_slot_kv` /
+  :func:`import_slot_kv_paged` write a shipped prefill back, dropping
+  unmapped pages; :func:`kv_to_host` / :func:`kv_from_host` carry bf16
+  K/V as ``np.uint16`` bits, the reference's bytes without
+  ``ml_dtypes``.
 - **Sampling**: greedy (first-index argmax) at temperature 0, else
   ``categorical(sub, logits / temperature)`` with a per-slot key chain
   split exactly like the reference's, through the port's threefry
@@ -1041,3 +1049,154 @@ def verify_chunk_slots_paged(params: Params, cache: Cache, token, draft,
 
     return _verify(params, cache, token, draft, rngs, active, cfg=cfg, k=k,
                    temperature=temperature, plan=plan)
+
+
+# ------------------------------------------------------- KV handoff (ship)
+def kv_to_host(*tensors: torch.Tensor):
+    """Device K/V (and scales) → host arrays for a handoff payload, the
+    reference's bytes: float32, int8 and float16 by value; bfloat16,
+    which numpy lacks, as its ``np.uint16`` bit patterns (the same bytes
+    the reference's ``ml_dtypes.bfloat16`` arrays hold, so the payload
+    digest is the same)."""
+    out = []
+    for t in tensors:
+        if t.dtype == torch.bfloat16:
+            out.append(t.view(torch.int16).cpu().numpy().view(np.uint16))
+        else:
+            out.append(t.cpu().numpy())
+    return tuple(out)
+
+
+def kv_from_host(a, dtype: torch.dtype, device: torch.device
+                 ) -> torch.Tensor:
+    """A payload's host K/V → a tensor of the pool's ``dtype`` on
+    ``device``. A 2-byte array that is not float16 (the port's
+    ``np.uint16`` wire form, or the reference's ``ml_dtypes.bfloat16``,
+    recognised by its dtype name without importing it) holds bfloat16
+    bit patterns and is viewed, not converted; anything else converts by
+    value, as the reference's import casts to the pool dtype."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.itemsize == 2 and a.dtype != np.float16:
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    if device.type == "cuda":
+        t = t.pin_memory().to(device, non_blocking=True)
+    else:
+        t = t.clone()
+    return t.to(dtype)
+
+
+def export_slot_kv(cache: Cache, slot: int, *, cfg: GPTConfig,
+                   length: Optional[int] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One slot's K/V rows from a FLAT pool for a prefill → decode
+    handoff (``gpt_decode.py:1782``): ``(k, v)``, each ``[L, max_len, H,
+    hd]``, copies on the pool's device. ``length`` trims them to ``[L,
+    length, H, hd]`` on the device, so only the shipped positions cross
+    to the host (the reference copies the whole row and trims there: the
+    shipped bytes are the same). ``slot`` clamps like the reference's
+    ``dynamic_slice`` start."""
+    B, M = cache["k"].shape[1:3]
+    slot = min(max(int(slot), 0), B - 1)
+    n = M if length is None else int(length)
+    return (cache["k"][:, slot, :n].clone(),
+            cache["v"][:, slot, :n].clone())
+
+
+def export_slot_kv_paged(cache: Cache, pt_row, *, cfg: GPTConfig,
+                         page_size: int, kv_dtype: str = "fp",
+                         length: Optional[int] = None):
+    """Paged twin of :func:`export_slot_kv` (``gpt_decode.py:1803``): the
+    slot's pages gathered through its page-table row ``pt_row
+    [max_pages]`` (host) into virtual order, ``(k, v)`` each ``[L,
+    max_pages * page_size, H, hd]``; sentinel entries clamp to a real
+    page whose garbage lies past ``pos``. int8 pools also return the
+    per-page scales, ``(k, v, ks, vs)`` with ``ks``/``vs`` ``[L,
+    max_pages, H]``. ``length`` gathers only the ``ceil(length /
+    page_size)`` covering pages and trims K/V to ``length`` positions
+    on the device: the bytes the reference ships after trimming on the
+    host."""
+    pt = np.asarray(pt_row, np.int64).reshape(-1)
+    if length is not None:
+        pt = pt[:-(-int(length) // page_size)]
+    L, n_pages = cache["k"].shape[:2]
+    idx = _to_device(np.clip(pt, 0, n_pages - 1), cache["k"].device)
+    H, hd = cache["k"].shape[3:]
+    n = pt.shape[0] * page_size if length is None else int(length)
+    k = cache["k"][:, idx].reshape(L, -1, H, hd)[:, :n]
+    v = cache["v"][:, idx].reshape(L, -1, H, hd)[:, :n]
+    if kv_dtype == "int8":
+        return k, v, cache["ks"][:, idx], cache["vs"][:, idx]
+    return k, v
+
+
+def import_slot_kv(cache: Cache, k_row, v_row, slot: int, length: int, *,
+                   cfg: GPTConfig) -> None:
+    """Scatter a shipped prefill's K/V into slot ``slot`` of a FLAT pool,
+    in place, and set ``pos[slot] = length`` (``gpt_decode.py:1828``).
+    ``k_row``/``v_row`` are ``[L, n, H, hd]`` host arrays (a payload's,
+    see :func:`kv_from_host`) or tensors with ``n <= max_len``: positions
+    ``[0, n)`` take them and ``[n, max_len)`` become zeros, as the
+    reference's host-padded full row leaves them. Only the ``n`` shipped
+    positions are uploaded."""
+    B, M = cache["k"].shape[1:3]
+    slot = min(max(int(slot), 0), B - 1)
+    dev, dt = cache["k"].device, cache["k"].dtype
+    for name, row in (("k", k_row), ("v", v_row)):
+        row = row.to(dev, dt) if isinstance(row, torch.Tensor) else \
+            kv_from_host(row, dt, dev)
+        n = row.shape[1]
+        cache[name][:, slot, :n] = row
+        cache[name][:, slot, n:] = 0
+    cache["pos"][slot] = int(length)
+
+
+def import_slot_kv_paged(cache: Cache, k_pages, v_pages, pt_row,
+                         slot: int, length: int, *, cfg: GPTConfig,
+                         page_size: int, ks_pages=None, vs_pages=None
+                         ) -> None:
+    """Paged twin of :func:`import_slot_kv` (``gpt_decode.py:1849``):
+    scatter shipped K/V into the pool pages mapped by ``pt_row
+    [max_pages]`` (host), in place, and set ``pos[slot] = length``.
+
+    ``k_pages``/``v_pages`` are ``[L, n_ship, page_size, H, hd]`` (the
+    reference pads to ``n_ship = max_pages`` on the host) or ``[L, n, H,
+    hd]`` positions, which are uploaded as they are and padded with
+    zeros to whole pages on the device. Table column ``j < n_ship`` is
+    written only if ``j * page_size < length`` and ``pt_row[j]`` is a
+    real page: sentinel and out-of-range entries are DROPPED, never
+    clamped into another slot's page. int8 pools take the per-page
+    scales ``ks_pages``/``vs_pages`` ``[L, n_ship, H]`` under the same
+    mask."""
+    dev = cache["k"].device
+    L, n_pages, ps, H, hd = cache["k"].shape
+    pt = np.asarray(pt_row, np.int64).reshape(-1)
+    length = int(length)
+
+    def pages(a, dt):
+        t = a.to(dev, dt) if isinstance(a, torch.Tensor) else \
+            kv_from_host(a, dt, dev)
+        if t.dim() == 4:                        # [L, n, H, hd] positions
+            n = t.shape[1]
+            padded = torch.zeros((L, -(-n // ps) * ps, H, hd), dtype=dt,
+                                 device=dev)
+            padded[:, :n] = t
+            t = padded.reshape(L, -1, ps, H, hd)
+        return t
+
+    k = pages(k_pages, cache["k"].dtype)
+    v = pages(v_pages, cache["v"].dtype)
+    n_ship = k.shape[1]
+    cols = np.arange(min(n_ship, pt.shape[0]))
+    tgt = pt[cols]
+    ok = (cols * ps < length) & (tgt >= 0) & (tgt < n_pages)
+    w = _to_device(np.stack([cols[ok], tgt[ok]]), dev)
+    cache["k"][:, w[1]] = k[:, w[0]]
+    cache["v"][:, w[1]] = v[:, w[0]]
+    if ks_pages is not None:
+        for name, s in (("ks", ks_pages), ("vs", vs_pages)):
+            s = s.to(dev, torch.float32) if isinstance(s, torch.Tensor) \
+                else _to_device(np.asarray(s, np.float32), dev)
+            cache[name][:, w[1]] = s[:, w[0]]
+    cache["pos"][int(slot)] = length

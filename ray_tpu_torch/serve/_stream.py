@@ -2,7 +2,7 @@
 
 The port's own copy of the pieces of ``ray_tpu/serve/batching.py``
 (``default_buckets``, ``_STREAM_END``, ``_StreamLane``, ``_EngineStream``)
-and ``ray_tpu/serve/request.py`` (``deadline_expired``,
+and ``ray_tpu/serve/request.py`` (``deadline_expired``, ``remaining_s``,
 ``RequestDeadlineExceeded``) that the decode engine uses, trimmed to
 that use: the port imports nothing of the JAX package.
 """
@@ -29,6 +29,11 @@ def default_buckets(max_size: int) -> List[int]:
 class RequestDeadlineExceeded(TimeoutError):
     """The request's absolute deadline passed before (or while) the
     engine could produce an answer."""
+
+
+def remaining_s(deadline_s: Optional[float]) -> Optional[float]:
+    """Seconds until the deadline (may be <= 0); None = unbounded."""
+    return None if deadline_s is None else deadline_s - time.time()
 
 
 def deadline_expired(deadline_s: Optional[float]) -> bool:

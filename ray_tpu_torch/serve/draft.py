@@ -331,16 +331,12 @@ def tied_drafter_params(target_params, target_cfg, *, n_layer: int = 1,
     """Build ``(params, cfg)`` for a :class:`ModelDrafter` that SHARES
     the target's embedding and position tables (the same tensors) over a
     fresh ``n_layer``-deep trunk, on the target's device and in its
-    storage dtype. Deterministic for a given seed.
-
-    The trunk comes from the port's own
-    :func:`~ray_tpu_torch.models.gpt.init_params` (a seeded
-    ``torch.Generator``), so it is NOT the reference's trunk for the
-    same seed (that one is drawn with ``jax.random``). At temperature 0
-    no committed token depends on the drafter; to reproduce the
-    reference's acceptance pattern, load the reference drafter's weights
-    through :func:`~ray_tpu_torch.models.gpt.params_from_numpy` into a
-    :class:`ModelDrafter` instead."""
+    storage dtype (``draft.py:366-384``). The whole ``n_layer`` config is
+    drawn with :func:`~ray_tpu_torch.models.gpt.init_params` for
+    ``seed`` and its two tables are then replaced by the target's, as
+    the reference does, so the trunk is the reference drafter's bit for
+    bit: seeded ``spec_decode="model"`` streams match across the two
+    packages with no weights passed across."""
     embed = target_params["embed"]
     dcfg = dataclasses.replace(target_cfg, n_layer=int(n_layer))
     params = gpt.init_params(dcfg, int(seed), device=embed.device,

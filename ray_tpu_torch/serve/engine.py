@@ -35,19 +35,45 @@ enqueue and are safe from any thread. The design is the reference's:
   one. With ``spec_threshold > 0`` a round whose drafters expect little
   falls back to one plain chunk.
 
+- **Disaggregated prefill/decode** (``role=``): a ``"prefill"`` engine's
+  :meth:`DecodeEngine.handoff` prefills into a transient slot, exports
+  the slot's K/V (:func:`~ray_tpu_torch.models.gpt_decode.export_slot_kv`
+  and its paged twin, trimmed to the prompt on the device), frees the
+  slot and returns a descriptor under an epoch-stamped lease
+  (:mod:`~ray_tpu_torch.serve.handoff`); a ``"decode"`` engine's
+  :meth:`DecodeEngine.admit_prefilled` byte-verifies the payload and
+  imports it into a free slot, so decoding continues where the prefill
+  engine stopped. Any failure to resolve or verify falls back to a
+  local prefill of the descriptor's prompt and seed (token-identical by
+  determinism), counted. ``"both"`` (the default) serves every path.
+- **Lifecycle**: the driver stamps a heartbeat every loop and runs under
+  an epoch; :meth:`DecodeEngine.supervise` restarts a dead or wedged
+  driver once (its lanes fail with the retryable
+  :class:`EngineRestartError`, the pool is rebuilt and the epoch moves,
+  so a stale driver drops its results), :meth:`DecodeEngine.drain`
+  stops admissions and lets running lanes finish, and
+  :meth:`DecodeEngine.inject_fault` arms the chaos faults.
+- **Config plane**: :meth:`DecodeEngine.apply_config` routes a
+  deployment's ``engine:`` knobs to :meth:`DecodeEngine.ensure_paging`,
+  :meth:`DecodeEngine.ensure_spec`, :meth:`DecodeEngine.ensure_role`
+  and :meth:`DecodeEngine.ensure_tp`; each is a no-op when nothing
+  changes and refuses a change on an engine that has served traffic.
+
 At temperature 0 each stream is token-identical to the reference's
 ``generate_chunked`` for the same prompt, and at temperature > 0 to the
 reference engine's stream for the same seed (f32 compute; asserted in
-``tests/test_torch_engine.py`` and ``tests/test_torch_engine_spec.py``).
-Left for later slices: prefill/decode roles and KV handoff, tensor
-parallelism, and the serve front (driver supervision, epochs, tracing
-and metrics).
+``tests/test_torch_engine.py``, ``tests/test_torch_engine_spec.py``,
+``tests/test_torch_handoff.py`` and
+``tests/test_torch_engine_lifecycle.py``). Left for later slices: tensor
+parallelism (``tp`` > 1) and the serve front (tracing, flight-recorder
+events and metrics).
 """
 from __future__ import annotations
 
 import collections
 import functools
 import hashlib
+import os
 import queue
 import threading
 import time
@@ -60,9 +86,13 @@ from .._private import prng
 from .._private.device import (DeviceLike, resolve_device,
                                set_matmul_precision)
 from ..models import gpt_decode
+from . import handoff as _ho
 from .draft import make_drafter
 from ._stream import (_STREAM_END, RequestDeadlineExceeded, _EngineStream,
-                      _StreamLane, deadline_expired, default_buckets)
+                      _StreamLane, deadline_expired, default_buckets,
+                      remaining_s)
+
+ROLES = ("both", "prefill", "decode")
 
 
 def default_prompt_buckets(max_len: int) -> List[int]:
@@ -85,6 +115,15 @@ class _EngineRequest:
     #: the caller's ``resume_from``): the replay regenerates them (the
     #: seeded stream is deterministic) and suppresses this many.
     skip: int = 0
+    #: Handoff export: admission = prefill + export + free; the lane
+    #: receives one item, the descriptor.
+    export: bool = False
+    #: Handoff import: ``{"payload": verified payload}`` scattered into
+    #: the slot instead of a prefill. Kept on the request, so a recompute
+    #: preemption re-imports.
+    handoff: Optional[dict] = None
+    #: Export-side lease TTL override (0 = the engine's default).
+    ttl_s: float = 0.0
 
 
 @dataclass
@@ -104,7 +143,17 @@ class _Slot:
 
 
 class EngineShutdownError(RuntimeError):
-    """The engine stopped while this request was queued or decoding."""
+    """The engine stopped while this request was queued or decoding.
+    Retryable: prompt, knobs, seed and the delivered count determine the
+    stream, so a caller resubmits (mid-stream with ``resume_from``)."""
+
+    retryable = True
+
+
+class EngineRestartError(EngineShutdownError):
+    """The engine's driver died or wedged; its lanes were failed and the
+    driver restarted (or awaits replacement). Retryable like
+    :class:`EngineShutdownError`."""
 
 
 class _PagePool:
@@ -228,6 +277,13 @@ class _PrefixCache:
                 return True
         return False
 
+    def clear(self):
+        """Unpin and drop every entry (cache teardown)."""
+        while self._entries:
+            _, (_n, _raw, pages) = self._entries.popitem(last=False)
+            self._pool.unref(pages)
+            self.evictions += 1
+
 
 class DecodeEngine:
     """Slot-based continuous-batching engine over a paged or flat KV
@@ -261,7 +317,14 @@ class DecodeEngine:
       :class:`~ray_tpu_torch.serve.draft.Drafter`) turns each dispatch
       into draft ``draft_k`` + one verify; ``spec_threshold > 0`` (greedy
       engines only) runs a plain chunk instead whenever the drafters'
-      mean expected acceptance is below it."""
+      mean expected acceptance is below it.
+    - ``role`` (``"both"``, ``"prefill"``, ``"decode"``) gates the
+      disaggregation paths; ``handoff_ttl_s`` is the default lease life
+      of an exported payload.
+    - ``wedge_timeout_s`` is the heartbeat age at which
+      :meth:`supervise` calls a live driver wedged;
+      ``max_driver_restarts`` how many restarts it makes before it
+      reports the engine unhealthy."""
 
     def __init__(self, params, cfg, *, slots: int = 4, chunk: int = 8,
                  max_len: int = 0, temperature: float = 0.0,
@@ -271,7 +334,10 @@ class DecodeEngine:
                  n_pages: int = 0, prefix_cache: bool = True,
                  attn_kernel: Optional[str] = None, kv_dtype: str = "fp",
                  spec_decode=None, draft_k: int = 4,
-                 spec_threshold: float = 0.0, device: DeviceLike = None,
+                 spec_threshold: float = 0.0, role: str = "both",
+                 handoff_ttl_s: float = 30.0,
+                 wedge_timeout_s: float = 30.0,
+                 max_driver_restarts: int = 1, device: DeviceLike = None,
                  auto_start: bool = True):
         self.cfg = cfg
         self.slots = int(slots)
@@ -293,6 +359,11 @@ class DecodeEngine:
                 f"largest prompt bucket {buckets[-1]} exceeds cache "
                 f"length {self.max_len}")
         self.prompt_buckets = buckets
+        if role not in ROLES:
+            raise ValueError(f"unknown engine role {role!r}; expected "
+                             f"'prefill', 'decode', or 'both'")
+        self.role = role
+        self._leases = _ho.LeaseTable(ttl_s=float(handoff_ttl_s))
         self.draft_k = int(draft_k)
         self.spec_threshold = float(spec_threshold)
         if self.draft_k < 1:
@@ -328,7 +399,13 @@ class DecodeEngine:
             self._drafter.configure(
                 slots=self.slots, max_len=self.max_len,
                 prompt_buckets=self.prompt_buckets, draft_k=self.draft_k)
-        self._build_pool(paged, page_size, n_pages, prefix_cache)
+        # Guards the submit-vs-final-drain race (once _fail_all flips
+        # _draining under it, no submission can land in a queue nobody
+        # reads again) and every swap of the pool structures: each
+        # _build_pool call holds it.
+        self._admit_lock = threading.Lock()
+        with self._admit_lock:
+            self._build_pool(paged, page_size, n_pages, prefix_cache)
 
         # Per-slot host state; index i mirrors pool row i. ``_token`` /
         # ``_rngs`` are each slot's last token and PRNG lane, uploaded
@@ -341,10 +418,6 @@ class DecodeEngine:
         # place when admission runs out of pages.
         self._pending: "collections.deque[_EngineRequest]" = \
             collections.deque()
-        # Guards the submit-vs-final-drain race: once _fail_all flips
-        # _draining under this lock, no submission can land in a queue
-        # nobody will read again.
-        self._admit_lock = threading.Lock()
         self._draining = False
         self._fail_lock = threading.Lock()
         self._stats_lock = threading.Lock()
@@ -354,18 +427,38 @@ class DecodeEngine:
                        "peak_active": 0, "prefix_hits": 0,
                        "prefix_tokens_reused": 0, "cow_copies": 0,
                        "admissions_deferred": 0, "lane_parks": 0,
-                       "preempted": 0, "resumed": 0, "spec_rounds": 0,
-                       "spec_proposed": 0, "spec_accepted": 0,
-                       "spec_fallback_rounds": 0, "spec_lanes": 0}
+                       "preempted": 0, "resumed": 0, "driver_restarts": 0,
+                       "spec_rounds": 0, "spec_proposed": 0,
+                       "spec_accepted": 0, "spec_fallback_rounds": 0,
+                       "spec_lanes": 0, "handoffs_exported": 0,
+                       "handoffs_imported": 0,
+                       "handoff_import_fallbacks": 0,
+                       "handoff_ship_bytes": 0}
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        # Driver supervision: the driver stamps _beat every loop;
+        # supervise() reads a stale beat from a live thread as a wedge
+        # and a dead thread as a crash. Each driver run has an epoch: a
+        # wedged driver that wakes after a restart finds the epoch moved
+        # and drops its results instead of touching the new pool.
+        self.wedge_timeout_s = float(wedge_timeout_s)
+        self.max_driver_restarts = int(max_driver_restarts)
+        self._beat = time.monotonic()
+        self._epoch = 0
+        self._shutdown = False
+        self._supervise_lock = threading.Lock()
+        #: Chaos fault armed by inject_fault() (testing only).
+        self._fault: Optional[dict] = None
+        self._throttle_s = 0.0
         if auto_start:
             self.start()
 
     def _build_pool(self, paged: bool, page_size: int, n_pages: int,
                     prefix_cache: bool):
         """Allocate THE pool, flat or paged (``engine.py:606``), and bind
-        the chunk step ``_step(token, rngs, active)`` to it."""
+        the chunk step ``_step(token, rngs, active)`` to it. Called at
+        construction, by :meth:`ensure_paging` on an unused engine and by
+        :meth:`_restart_driver`; every caller holds ``_admit_lock``."""
         cfg = self.cfg
         self.paged = bool(paged)
         knobs = dict(cfg=cfg, k=self.chunk, temperature=self.temperature,
@@ -425,6 +518,83 @@ class DecodeEngine:
                 gpt_decode.verify_chunk_slots, self.params, self._cache,
                 **knobs)
 
+    def _used(self, exports: bool = False) -> bool:
+        """The engine has admitted (``exports``: or exported) or holds
+        work: its pool, knobs and role are load-bearing from then on."""
+        with self._stats_lock:
+            used = self._stats["admitted"] + (
+                self._stats["handoffs_exported"] if exports else 0)
+        return bool(used or self._queue.qsize() or self._pending or
+                    any(s is not None for s in self._state))
+
+    # ------------------------------------------------------- config plane
+    def ensure_paging(self, page_size: Optional[int] = None,
+                      prefix_cache: Optional[bool] = None,
+                      n_pages: Optional[int] = None,
+                      attn_kernel: Optional[str] = None,
+                      kv_dtype: Optional[str] = None):
+        """Idempotently apply paging knobs (``engine.py:700``). A
+        matching engine is a no-op; a mismatched one is rebuilt IF it has
+        never admitted a request, else this raises. ``prefix_cache``
+        alone toggles on the host. ``attn_kernel``/``kv_dtype`` are
+        paged-pool knobs, as in the constructor: a flat engine takes them
+        only together with ``page_size``, and repaging a flat engine
+        without ``attn_kernel`` picks the paged default, ``"cuda"``."""
+        want_ps = int(page_size) if page_size is not None else None
+        if want_ps is not None and want_ps < 1:
+            raise ValueError("page_size must be >= 1")
+        if attn_kernel is not None and \
+                attn_kernel not in gpt_decode.ATTN_KERNELS:
+            raise ValueError(
+                f"unknown attn_kernel {attn_kernel!r}; expected one of "
+                f"{gpt_decode.ATTN_KERNELS}")
+        if kv_dtype is not None and kv_dtype not in gpt_decode.KV_DTYPES:
+            raise ValueError(
+                f"unknown kv_dtype {kv_dtype!r}; expected one of "
+                f"{gpt_decode.KV_DTYPES}")
+        with self._admit_lock:
+            if want_ps is None and not self.paged and (
+                    prefix_cache or n_pages is not None or
+                    (attn_kernel or "gather") != "gather" or
+                    (kv_dtype or "fp") != "fp"):
+                raise ValueError(
+                    "prefix_cache/n_pages/attn_kernel/kv_dtype are "
+                    "paged-pool knobs; this engine is flat — pass "
+                    "page_size to repage it")
+            knob_change = (
+                (attn_kernel is not None and
+                 attn_kernel != self.attn_kernel) or
+                (kv_dtype is not None and kv_dtype != self.kv_dtype))
+            if want_ps is None and self.paged and (
+                    n_pages is not None or knob_change):
+                want_ps = self.page_size   # rebuild keeps the page size
+            need_rebuild = want_ps is not None and (
+                not self.paged or self.page_size != want_ps or
+                (n_pages is not None and int(n_pages) != self.n_pages) or
+                knob_change)
+            if need_rebuild:
+                if self._used():
+                    raise ValueError(
+                        f"cannot repage a live engine (page_size="
+                        f"{self.page_size or None} -> {want_ps}); "
+                        f"construct it paged or apply the config "
+                        f"before traffic")
+                if attn_kernel is not None or not self.paged:
+                    self.attn_kernel = attn_kernel or "cuda"
+                if kv_dtype is not None:
+                    self.kv_dtype = kv_dtype
+                self._build_pool(True, want_ps, int(n_pages or 0),
+                                 prefix_cache if prefix_cache is not None
+                                 else self._prefix is not None)
+            elif prefix_cache is not None and self.paged:
+                if prefix_cache and self._prefix is None:
+                    self._prefix = _PrefixCache(self._pool,
+                                                self.page_size)
+                elif not prefix_cache and self._prefix is not None:
+                    self._prefix.clear()
+                    self._prefix = None
+        return self
+
     def ensure_spec(self, spec_decode=None, draft_k: Optional[int] = None,
                     spec_threshold: Optional[float] = None):
         """Idempotently apply the speculative-decoding knobs
@@ -455,10 +625,7 @@ class DecodeEngine:
             if want is cur and want_k == self.draft_k \
                     and want_thr == self.spec_threshold:
                 return self
-            with self._stats_lock:
-                used = self._stats["admitted"]
-            if used or self._queue.qsize() or self._pending or \
-                    any(s is not None for s in self._state):
+            if self._used():
                 raise ValueError(
                     "cannot change spec_decode/draft_k on a live "
                     "engine; construct it with the knobs or apply them "
@@ -473,18 +640,71 @@ class DecodeEngine:
             self._bind_verify()
         return self
 
-    # ------------------------------------------------------------ admission
-    def submit(self, prompt, max_new: int, *,
-               deadline_s: Optional[float] = None, seed: int = 0,
-               resume_from: int = 0) -> _StreamLane:
-        """Enqueue one request; returns its stream lane immediately. The
-        driver admits it at the next chunk boundary with a free slot.
-        ``deadline_s`` is an absolute ``time.time()`` stamp; ``seed``
-        seeds the request's PRNG lane (temperature > 0).
+    def ensure_role(self, role: Optional[str] = None,
+                    handoff_ttl_s: Optional[float] = None):
+        """Idempotently apply the disaggregation knobs (``engine.py:828``).
+        A matching engine is a no-op; a mismatched one is re-roled IF it
+        has never admitted or exported, else this raises."""
+        if role is not None and role not in ROLES:
+            raise ValueError(f"unknown engine role {role!r}")
+        with self._admit_lock:
+            if role is not None and role != self.role:
+                if self._used(exports=True):
+                    raise ValueError(
+                        f"cannot change engine role ({self.role} -> "
+                        f"{role}) on a live engine; construct it with "
+                        f"the role or apply the config before traffic")
+                self.role = role
+            if handoff_ttl_s is not None:
+                self._leases.ttl_s = float(handoff_ttl_s)
+        return self
 
-        ``resume_from=n`` says the caller already holds the first ``n``
-        tokens of this exact (prompt, knobs, seed) stream: the engine
-        replays the generation and suppresses those ``n`` tokens."""
+    def ensure_tp(self, tp: Optional[int] = None):
+        """The tensor-parallel width (``engine.py:856``). The port runs
+        ``tp=1`` only: 1 (or None) is a no-op, any other width raises
+        until tensor-parallel decode is ported."""
+        if tp is None or int(tp) == 1:
+            return self
+        raise NotImplementedError(
+            f"tp={int(tp)}: tensor-parallel decode is not ported yet "
+            f"(ROADMAP.md Queue 1); this engine runs tp=1")
+
+    #: Config-plane knob split for :meth:`apply_config`.
+    _PAGE_KEYS = ("page_size", "prefix_cache", "n_pages",
+                  "attn_kernel", "kv_dtype")
+    _SPEC_KEYS = ("spec_decode", "draft_k", "spec_threshold")
+    _ROLE_KEYS = ("role", "handoff_ttl_s")
+    _TP_KEYS = ("tp",)
+
+    def apply_config(self, **knobs):
+        """Route a deployment's ``engine:`` config block to the appliers
+        (``engine.py:892``): ``tp`` to :meth:`ensure_tp` (first), paging
+        knobs to :meth:`ensure_paging`, speculation knobs to
+        :meth:`ensure_spec`, role knobs to :meth:`ensure_role`. None
+        values are skipped; unknown keys raise."""
+        known = set(self._PAGE_KEYS) | set(self._SPEC_KEYS) \
+            | set(self._ROLE_KEYS) | set(self._TP_KEYS)
+        unknown = set(knobs) - known
+        if unknown:
+            raise ValueError(
+                f"unknown engine config keys {sorted(unknown)}; known: "
+                f"{sorted(known)}")
+        for keys, apply in ((self._TP_KEYS, self.ensure_tp),
+                            (self._PAGE_KEYS, self.ensure_paging),
+                            (self._SPEC_KEYS, self.ensure_spec),
+                            (self._ROLE_KEYS, self.ensure_role)):
+            sub = {k: v for k, v in knobs.items()
+                   if k in keys and v is not None}
+            if sub:
+                apply(**sub)
+        return self
+
+    # ------------------------------------------------------------ admission
+    def _validate_admission(self, prompt, max_new: int):
+        """Shared by every entry point that prefills from a prompt
+        (``submit`` and ``handoff``; ``engine.py:927``): the prompt as
+        int32 ``[S]``, its bucket, and the generation bounded by the
+        cache. Returns ``(prompt, bucket)``."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         S = prompt.shape[0]
         if S < 1:
@@ -498,6 +718,35 @@ class DecodeEngine:
             raise ValueError(
                 f"prompt ({S}) + max_new ({max_new}) exceeds cache "
                 f"length {self.max_len}")
+        return prompt, bucket
+
+    def _enqueue(self, req: _EngineRequest):
+        with self._admit_lock:
+            if self._draining:
+                raise EngineShutdownError(
+                    "engine is not accepting requests (draining or shut "
+                    "down); resubmit on another replica")
+            self._queue.put(req)
+
+    def submit(self, prompt, max_new: int, *,
+               deadline_s: Optional[float] = None,
+               trace_ctx: Optional[dict] = None, seed: int = 0,
+               resume_from: int = 0) -> _StreamLane:
+        """Enqueue one request; returns its stream lane immediately. The
+        driver admits it at the next chunk boundary with a free slot.
+        ``deadline_s`` is an absolute ``time.time()`` stamp; ``seed``
+        seeds the request's PRNG lane (temperature > 0); ``trace_ctx`` is
+        accepted and ignored (tracing is not ported).
+
+        ``resume_from=n`` says the caller already holds the first ``n``
+        tokens of this exact (prompt, knobs, seed) stream: the engine
+        replays the generation and suppresses those ``n`` tokens."""
+        if self.role == "prefill":
+            raise ValueError(
+                "prefill-role engine only exports handoffs (use "
+                "handoff()); decode streams need a decode-capable "
+                "engine")
+        prompt, bucket = self._validate_admission(prompt, max_new)
         resume_from = int(resume_from)
         if resume_from < 0 or resume_from > max_new:
             raise ValueError(
@@ -509,14 +758,9 @@ class DecodeEngine:
         if max_new <= 0:
             lane.q.put((_STREAM_END, None))
             return lane
-        with self._admit_lock:
-            if self._draining:
-                raise EngineShutdownError(
-                    "engine is not accepting requests (shut down)")
-            self._queue.put(_EngineRequest(
-                prompt=prompt, bucket=bucket, max_new=int(max_new),
-                lane=lane, deadline_s=deadline_s, seed=int(seed),
-                skip=resume_from))
+        self._enqueue(_EngineRequest(
+            prompt=prompt, bucket=bucket, max_new=int(max_new), lane=lane,
+            deadline_s=deadline_s, seed=int(seed), skip=resume_from))
         if resume_from:
             self._count(resumed=1)
         return lane
@@ -525,6 +769,144 @@ class DecodeEngine:
         """``submit`` + drain: an iterator of np.int32 ``[j]`` chunk
         slices (the first is the prefill token alone)."""
         return _EngineStream(self.submit(prompt, max_new, **kw))
+
+    # ----------------------------------------------------- disaggregation
+    def handoff(self, prompt, max_new: int, *, seed: int = 0,
+                deadline_s: Optional[float] = None,
+                trace_ctx: Optional[dict] = None,
+                ttl_s: Optional[float] = None) -> dict:
+        """Prefill ``prompt`` into a transient slot, sample the first
+        token, export the slot's K/V and return a leased handoff
+        descriptor (``engine.py:1021``); the slot frees before this
+        returns. The descriptor carries the lease (``lease_id``,
+        ``epoch``, ``expires_at``), the ``digest``, the inline
+        ``payload`` and the replay identity (``prompt``, ``seed``,
+        ``max_new``), so any decode-capable engine can import the bytes
+        or, if they are bad, re-prefill the same stream.
+
+        Blocks until the driver exports (bounded by ``deadline_s``, else
+        120 s); safe from any thread."""
+        if self.role == "decode":
+            raise ValueError(
+                "decode-role engine cannot export handoffs; use a "
+                "prefill or both-role engine")
+        prompt, bucket = self._validate_admission(prompt, max_new)
+        if max_new < 1:
+            raise ValueError("handoff needs max_new >= 1 (the first "
+                             "token is sampled at prefill)")
+        prng.PRNGKey(seed)
+        lane = _StreamLane()
+        self._enqueue(_EngineRequest(
+            prompt=prompt, bucket=bucket, max_new=int(max_new), lane=lane,
+            deadline_s=deadline_s, seed=int(seed), export=True,
+            ttl_s=float(ttl_s or 0.0)))
+        rem = remaining_s(deadline_s)
+        try:
+            kind, val = lane.q.get(timeout=rem if rem is not None
+                                   else 120.0)
+        except queue.Empty:
+            lane.closed = True
+            raise RequestDeadlineExceeded(
+                "handoff export did not complete before the request "
+                "deadline") from None
+        if kind == "err":
+            raise val
+        if kind is _STREAM_END:
+            raise EngineShutdownError(
+                "handoff export lane closed without a descriptor")
+        return val
+
+    def claim_handoff(self, lease_id: str, epoch: int) -> bool:
+        """Decode-side acknowledgement that a shipped payload was
+        imported: releases the lease before its expiry
+        (``engine.py:1081``). Unknown or stale leases return False."""
+        return self._leases.claim(lease_id, int(epoch))
+
+    def admit_prefilled(self, desc: dict, *,
+                        deadline_s: Optional[float] = None,
+                        trace_ctx: Optional[dict] = None,
+                        resume_from: int = 0) -> _StreamLane:
+        """Admit a handed-off stream (``engine.py:1092``): resolve the
+        descriptor's payload, check it against the descriptor's digest,
+        byte-verify it, check that it fits this engine (positions,
+        shape, ``kv_dtype``/``page_size``, layout) and enqueue an import;
+        the driver scatters the K/V into a free slot and decoding
+        continues from the prefill engine's state. Any failure falls back
+        to a LOCAL prefill of the descriptor's prompt and seed
+        (token-identical by determinism), counted in
+        ``stats()["handoff"]["import_fallbacks"]``. Returns the stream
+        lane; safe from any thread."""
+        if self.role == "prefill":
+            raise ValueError(
+                "prefill-role engine cannot import handoffs; use a "
+                "decode or both-role engine")
+        prompt = np.asarray(desc["prompt"], np.int32).reshape(-1)
+        max_new = int(desc["max_new"])
+        seed = int(desc["seed"])
+        resume_from = int(resume_from)
+        try:
+            payload = self._check_payload(desc, max_new)
+        except _ho.HandoffError:
+            self._count(handoff_import_fallbacks=1)
+            return self.submit(prompt, max_new, seed=seed,
+                               deadline_s=deadline_s,
+                               resume_from=resume_from)
+        if resume_from < 0 or resume_from > max_new:
+            raise ValueError(
+                f"resume_from {resume_from} outside [0, max_new="
+                f"{max_new}]")
+        # The import never reads the bucket (a preempted import
+        # re-imports), so a prompt past the largest bucket still imports.
+        bucket = next((b for b in self.prompt_buckets
+                       if b >= prompt.shape[0]), self.prompt_buckets[-1])
+        lane = _StreamLane()
+        self._enqueue(_EngineRequest(
+            prompt=prompt, bucket=bucket, max_new=max_new, lane=lane,
+            deadline_s=deadline_s, seed=seed, skip=resume_from,
+            handoff={"payload": payload}))
+        if resume_from:
+            self._count(resumed=1)
+        return lane
+
+    def _check_payload(self, desc: dict, max_new: int) -> dict:
+        """The checks that send an import to the local-prefill fallback,
+        in the reference's order; raises :class:`HandoffError`."""
+        payload = _ho.resolve_payload(desc)
+        # The descriptor's digest first: a stale payload that is
+        # internally consistent would pass verify_payload alone.
+        if desc.get("digest") and payload.get("digest") != desc["digest"]:
+            raise _ho.HandoffError(
+                "shipped payload digest does not match the descriptor's "
+                "(stale or clobbered object)")
+        _ho.verify_payload(payload)
+        P = int(payload["pos"])
+        if P + max_new > self.max_len:
+            raise _ho.HandoffError(
+                f"shipped pos {P} + max_new {max_new} exceeds cache "
+                f"length {self.max_len}")
+        want = (self.cfg.n_layer, P, self.cfg.n_head, self.cfg.head_dim)
+        if tuple(payload["k"].shape) != want \
+                or tuple(payload["v"].shape) != want:
+            raise _ho.HandoffError(
+                f"shipped KV shape {tuple(payload['k'].shape)} does not "
+                f"fit this engine's model ({want})")
+        ship_dt = payload.get("kv_dtype", "fp")
+        mine = self.kv_dtype if self.paged else "fp"
+        if ship_dt != mine:
+            raise _ho.HandoffError(
+                f"shipped kv_dtype {ship_dt!r} does not match this "
+                f"engine's ({mine!r})")
+        if ship_dt == "int8" and \
+                int(payload.get("page_size", 0)) != self.page_size:
+            raise _ho.HandoffError(
+                f"shipped page_size {payload.get('page_size')} does not "
+                f"match this engine's ({self.page_size})")
+        layout = payload.get("layout", "canonical")
+        if layout != "canonical":
+            raise _ho.HandoffError(
+                f"shipped KV layout {layout!r} is not the canonical host "
+                f"layout")
+        return payload
 
     def queue_depth(self) -> int:
         """Requests accepted but not yet admitted to a slot."""
@@ -536,9 +918,11 @@ class DecodeEngine:
             return
         with self._admit_lock:
             self._draining = False
+        self._shutdown = False
         self._stop = threading.Event()
+        self._beat = time.monotonic()
         self._thread = threading.Thread(
-            target=self._run, args=(self._stop,), daemon=True,
+            target=self._run, args=(self._stop, self._epoch), daemon=True,
             name="rt-torch-decode-engine")
         self._thread.start()
 
@@ -547,12 +931,130 @@ class DecodeEngine:
         :class:`EngineShutdownError`. A driver that outlives the join
         still owns the slots and pages: its lanes fail, its bookkeeping
         is left to its own exit path."""
+        self._shutdown = True
         self._stop.set()
         if self._thread is not None:
             self._thread.join(timeout=timeout_s)
         alive = self._thread is not None and self._thread.is_alive()
         self._fail_all(EngineShutdownError("engine shut down"),
                        free_state=not alive)
+
+    def drain(self, timeout_s: float = 5.0) -> bool:
+        """Graceful wind-down (``engine.py:1258``): admissions stop now
+        (``submit`` raises :class:`EngineShutdownError`), queued requests
+        that never started fail the same way, running lanes finish, and
+        stragglers fail at the deadline. True when every lane finished
+        within ``timeout_s``. The driver keeps running."""
+        with self._admit_lock:
+            self._draining = True
+        deadline = time.monotonic() + max(float(timeout_s), 0.0)
+        while time.monotonic() < deadline:
+            if not any(s is not None for s in self._state) \
+                    and not self._queue.qsize() and not self._pending:
+                return True
+            time.sleep(0.01)
+        alive = self._thread is not None and self._thread.is_alive()
+        self._fail_all(
+            EngineShutdownError(
+                f"engine drained with lanes still running after "
+                f"{timeout_s:.1f}s; resubmit to resume"),
+            free_state=not alive)
+        return False
+
+    def supervise(self) -> bool:
+        """Driver health, with a one-shot recovery (``engine.py:1289``):
+        True while the driver is alive and beating (or deliberately
+        stopped); on a death or a wedge (heartbeat older than
+        ``wedge_timeout_s``) the driver restarts, its lanes failing with
+        :class:`EngineRestartError`, and this still returns True, up to
+        ``max_driver_restarts`` times; after that False."""
+        with self._supervise_lock:
+            t = self._thread
+            if t is None or self._shutdown:
+                return True
+            alive = t.is_alive()
+            beat_age = time.monotonic() - self._beat
+            wedged = alive and beat_age > self.wedge_timeout_s
+            if alive and not wedged:
+                return True
+            with self._stats_lock:
+                restarts = self._stats["driver_restarts"]
+            if restarts >= self.max_driver_restarts:
+                return False
+            self._restart_driver(
+                f"driver wedged (no heartbeat for {beat_age:.1f}s)"
+                if wedged else "driver thread died")
+            return True
+
+    def _restart_driver(self, reason: str):
+        """Retire the driver's epoch (a wedged driver that wakes drops
+        its results at the epoch guards), fail its lanes retryably,
+        rebuild every pool structure (the old driver may still hold the
+        old ones), reset the drafter, and start a new driver
+        (``engine.py:1318``)."""
+        exc = EngineRestartError(
+            f"engine driver restarted ({reason}); resubmit to resume")
+        self._stop.set()
+        with self._fail_lock:
+            # Lanes fail; state and pages are not freed into the old
+            # structures, which the rebuild replaces wholesale.
+            self._fail_all_locked(exc, free_state=False)
+            self._epoch += 1
+            with self._admit_lock:
+                self._build_pool(self.paged, self.page_size or 16,
+                                 self.n_pages, self._prefix is not None)
+                if self._drafter is not None:
+                    self._drafter.reset()
+                self._state = [None] * self.slots
+                self._token = np.zeros((self.slots,), np.int32)
+                self._rngs = np.zeros((self.slots, 2), np.uint32)
+                self._pending = collections.deque()
+                self._queue = queue.SimpleQueue()
+        self._count(driver_restarts=1)
+        self._thread = None
+        self.start()
+
+    def inject_fault(self, kind: str = "driver_die", at_tokens: int = 0,
+                     wedge_s: float = 0.0):
+        """Arm ONE chaos fault on the driver, triggered at the next loop
+        boundary once ``at_tokens`` tokens have been delivered (testing
+        only; ``engine.py:1360``):
+
+        - ``"driver_die"``: the driver raises; lanes fail with
+          :class:`EngineRestartError` and :meth:`supervise` restarts it;
+        - ``"driver_wedge"``: the driver stalls ``wedge_s`` seconds
+          without a heartbeat;
+        - ``"kill_process"``: ``os._exit(43)``, the whole process dies;
+        - ``"driver_slow"``: a persistent stall of ``wedge_s`` seconds
+          per loop, heartbeat still beating."""
+        if kind not in ("driver_die", "driver_wedge", "kill_process",
+                        "driver_slow"):
+            raise ValueError(f"unknown fault kind {kind!r}")
+        if kind == "driver_slow":
+            self._throttle_s = float(wedge_s)
+            return
+        self._fault = {"kind": kind, "at_tokens": int(at_tokens),
+                       "wedge_s": float(wedge_s)}
+
+    def _check_fault(self):
+        """The driver loop's fault point (no-op unless armed)."""
+        if self._throttle_s:
+            time.sleep(self._throttle_s)
+        f = self._fault
+        if f is None:
+            return
+        with self._stats_lock:
+            toks = self._stats["tokens"]
+        if toks < f["at_tokens"]:
+            return
+        self._fault = None
+        if f["kind"] == "driver_wedge":
+            time.sleep(f["wedge_s"])          # stall WITHOUT beating
+        elif f["kind"] == "kill_process":
+            os._exit(43)
+        else:
+            raise RuntimeError(
+                f"injected engine driver death at {toks} tokens")
 
     def stats(self) -> dict:
         with self._stats_lock:
@@ -587,14 +1089,27 @@ class DecodeEngine:
                 mean_accept_len=sp["accepted"] / max(sp["lanes"], 1),
                 accepted_per_forward=(sp["accepted"] + sp["lanes"])
                 / max(sp["lanes"], 1))
+        out["role"] = self.role
+        ls = self._leases.stats()
+        out["handoff"] = {
+            "exported": out.pop("handoffs_exported"),
+            "imported": out.pop("handoffs_imported"),
+            "import_fallbacks": out.pop("handoff_import_fallbacks"),
+            "ship_bytes": out.pop("handoff_ship_bytes"),
+            "leases_outstanding": ls["outstanding"],
+            "leases_claimed": ls["claimed"],
+            "leases_reclaimed": ls["reclaimed"],
+        }
         out["paged"] = self.paged
         out["attn_kernel"] = self.attn_kernel
         out["kv_dtype"] = self.kv_dtype
         ps = self.page_size or 1
         out["kv_bytes_per_token"] = gpt_decode.kv_bytes_per_page(
             self.cfg, ps, self.kv_dtype) / ps
-        out["driver_alive"] = bool(self._thread is not None
-                                   and self._thread.is_alive())
+        t = self._thread
+        out["driver_alive"] = bool(t is not None and t.is_alive())
+        out["heartbeat_age_s"] = round(time.monotonic() - self._beat, 3)
+        out["draining"] = self._draining
         return out
 
     def _count(self, **deltas):
@@ -603,10 +1118,22 @@ class DecodeEngine:
                 self._stats[k] += v
 
     # ---------------------------------------------------------- driver loop
-    def _run(self, stop: threading.Event):
+    def _stale(self, epoch: int) -> bool:
+        """A supervisor restart retired this driver run."""
+        return epoch >= 0 and epoch != self._epoch
+
+    def _run(self, stop: threading.Event, epoch: int):
         try:
             while not stop.is_set():
-                self._admit_pending()
+                # Heartbeat before any work: supervise() reads its age to
+                # tell a wedged dispatch from an idle loop.
+                self._beat = time.monotonic()
+                self._check_fault()
+                if stop.is_set():
+                    break            # woke from a wedge past a restart
+                self._admit_pending(epoch)
+                if len(self._leases):
+                    self._leases.sweep()
                 if not any(s is not None for s in self._state):
                     if self._pending:
                         # A deferred head with no running lane cannot
@@ -622,43 +1149,55 @@ class DecodeEngine:
                         pass
                     continue
                 if self._drafter is not None:
-                    self._dispatch_spec()
+                    self._dispatch_spec(epoch)
                 else:
-                    self._dispatch_chunk()
-            self._fail_all(EngineShutdownError("engine shut down"))
+                    self._dispatch_chunk(epoch)
+            self._fail_all(EngineShutdownError("engine shut down"),
+                           epoch=epoch)
         except BaseException as e:  # noqa: BLE001 - driver died: fan out
+            # The lanes' streams replay deterministically elsewhere, so
+            # they fail with the retryable restart error.
             exc = e
             if not isinstance(e, EngineShutdownError):
-                exc = EngineShutdownError(f"engine driver died: {e!r}")
+                exc = EngineRestartError(
+                    f"engine driver died: {e!r}; resubmit to resume")
                 exc.__cause__ = e
-            self._fail_all(exc)
+            self._fail_all(exc, epoch=epoch)
             raise
 
-    def _fail_all(self, exc: BaseException, free_state: bool = True):
+    def _fail_all(self, exc: BaseException, free_state: bool = True,
+                  epoch: Optional[int] = None):
         """Fail every queued / in-flight lane with ``exc``.
         ``free_state=False`` (shutdown racing a still-alive driver) only
         puts errors; slot state, the pending deque and the page pool stay
-        the driver's. Serialized, so page refcounts drop once."""
+        the driver's. ``epoch`` (a driver's exit path) makes this a no-op
+        once a restart retired that run. Serialized, so page refcounts
+        drop once."""
         with self._fail_lock:
-            with self._admit_lock:
-                self._draining = True   # no put can land past this point
-            for i, st in enumerate(self._state):
-                if st is not None:
-                    st.lane.q.put(("err", exc))
-                    if free_state:
-                        self._free_slot(i)
-            if free_state:
-                while self._pending:
-                    self._pending.popleft().lane.q.put(("err", exc))
-            else:
-                for req in list(self._pending):
-                    req.lane.q.put(("err", exc))
-            while True:
-                try:
-                    req = self._queue.get_nowait()
-                except queue.Empty:
-                    return
+            if epoch is not None and epoch != self._epoch:
+                return
+            self._fail_all_locked(exc, free_state)
+
+    def _fail_all_locked(self, exc: BaseException, free_state: bool):
+        with self._admit_lock:
+            self._draining = True   # no put can land past this point
+        for i, st in enumerate(self._state):
+            if st is not None:
+                st.lane.q.put(("err", exc))
+                if free_state:
+                    self._free_slot(i)
+        if free_state:
+            while self._pending:
+                self._pending.popleft().lane.q.put(("err", exc))
+        else:
+            for req in list(self._pending):
                 req.lane.q.put(("err", exc))
+        while True:
+            try:
+                req = self._queue.get_nowait()
+            except queue.Empty:
+                return
+            req.lane.q.put(("err", exc))
 
     def _free_slot(self, i: int):
         """Release slot i: its page references drop, its page-table row
@@ -671,23 +1210,38 @@ class DecodeEngine:
             self._drafter.free(i)
         self._state[i] = None
 
-    def _alloc_pages(self, n: int) -> Optional[List[int]]:
+    def _alloc_pages(self, n: int, pool: Optional[_PagePool] = None,
+                     prefix: Optional[_PrefixCache] = None
+                     ) -> Optional[List[int]]:
         """Allocate n pages, evicting LRU prefix-cache entries while
-        short. None = genuinely out (every page pinned by live lanes)."""
-        while self._pool.available() < n:
-            if self._prefix is None or not self._prefix.evict_lru():
+        short. None = genuinely out (every page pinned by live lanes).
+        ``pool``/``prefix`` keep an admission on one snapshot across a
+        restart (default: the engine's current ones)."""
+        pool = self._pool if pool is None else pool
+        prefix = self._prefix if prefix is None else prefix
+        while pool.available() < n:
+            if prefix is None or not prefix.evict_lru():
                 return None
-        return self._pool.alloc(n)
+        return pool.alloc(n)
 
-    def _admit_pending(self):
+    def _admit_pending(self, epoch: int = -1):
         """Chunk-boundary admission: fill every free slot in FIFO order.
         Expired or abandoned requests fail out without a prefill; an
-        admission that cannot get pages DEFERS at the queue head."""
+        admission that cannot get pages DEFERS at the queue head. While
+        draining, requests that never started fail retryably."""
+        if self._stale(epoch):
+            return
         while True:
             try:
                 self._pending.append(self._queue.get_nowait())
             except queue.Empty:
                 break
+        if self._draining and self._pending:
+            exc = EngineShutdownError(
+                "engine draining; resubmit on another replica")
+            while self._pending:
+                self._pending.popleft().lane.q.put(("err", exc))
+            return
         for _ in range(len(self._pending)):
             req = self._pending.popleft()
             if req.lane.closed:
@@ -704,31 +1258,55 @@ class DecodeEngine:
             # admission may take them.
             return
         while self._pending and any(s is None for s in self._state):
-            if not self._admit_one(self._pending[0]):
+            admitted = self._admit_one(self._pending[0], epoch)
+            if self._stale(epoch):
+                # Restarted past this driver while it admitted: the
+                # deque is the new driver's now.
+                return
+            if not admitted:
                 self._count(admissions_deferred=1)
                 return               # out of pages: keep FIFO, back off
             self._pending.popleft()
 
-    def _admit_one(self, req: _EngineRequest) -> bool:
-        """Prefill ``req`` into a free slot and deliver (or, on a replay,
-        suppress) its first token; False defers (no pages)."""
+    def _admit_one(self, req: _EngineRequest, epoch: int = -1) -> bool:
+        """Prefill (or import) ``req`` into a free slot; False defers (no
+        pages). A handoff export leaves through :meth:`_finish_export`,
+        everything else through :meth:`_enter_steady_state`."""
         slot = next(i for i, s in enumerate(self._state) if s is None)
+        if req.handoff is not None:
+            return self._admit_import(req, slot, epoch)
         P = req.prompt.shape[0]
         key = prng.PRNGKey(req.seed)
         if self.paged:
-            admitted = self._prefill_paged(req, slot, P, key)
+            admitted = self._prefill_paged(req, slot, P, key, epoch)
             if admitted is None:
                 return False
             first, pages = admitted
         else:
             padded = np.zeros((1, req.bucket), np.int32)
             padded[0, :P] = req.prompt
-            first, self._rngs[slot] = gpt_decode.prefill_into_slot(
+            first, rng = gpt_decode.prefill_into_slot(
                 self.params, self._cache, padded, P, slot, key,
                 cfg=self.cfg, temperature=self.temperature)
+            if self._stale(epoch):
+                return True          # stale driver: drop on the floor
+            self._rngs[slot] = rng
             pages = []
-        self._count(prefills=1, admitted=1 if req.skip == 0 else 0)
+        self._count(prefills=1, admitted=1 if (req.skip == 0
+                                              and not req.export) else 0)
         self._token[slot] = first
+        if req.export:
+            return self._finish_export(req, slot, P, pages, first)
+        return self._enter_steady_state(req, slot, first, P, pages)
+
+    def _enter_steady_state(self, req: _EngineRequest, slot: int,
+                            first: int, P: int, pages: List[int]) -> bool:
+        """The admission tail shared by a local prefill and a handoff
+        import (``engine.py:1800``): deliver the first token (or
+        suppress it on a replay), close out a one-token or EOS request,
+        else install the slot's state and seed the drafter. Both paths
+        keep the same ``emitted``/``skip`` bookkeeping, so a resumed
+        stream is the same whichever way it was admitted."""
         skip = req.skip
         if skip > 0:
             skip -= 1            # replay: the first token was delivered
@@ -755,17 +1333,22 @@ class DecodeEngine:
         return True
 
     def _prefill_paged(self, req: _EngineRequest, slot: int, P: int,
-                       key: np.ndarray) -> Optional[Tuple[int, List[int]]]:
+                       key: np.ndarray, epoch: int = -1
+                       ) -> Optional[Tuple[int, List[int]]]:
         """Map the cached prefix (refcounted, COW fork if it ends
         mid-page), allocate fresh pages for the suffix, prefill ONLY the
         suffix, then register the prompt's pages in the prefix cache.
         Returns ``(first_token, pages)``, or None (nothing taken) when
-        pages are unavailable even after LRU eviction."""
+        pages are unavailable even after LRU eviction, or when a restart
+        retired this driver during the prefill."""
         ps = self.page_size
-        pool = self._pool
+        # One snapshot for the whole admission: a restart swaps the pool
+        # structures wholesale.
+        pool, prefix, pt, cache = self._pool, self._prefix, self._pt, \
+            self._cache
         hist, shared_pages = (0, [])
-        if self._prefix is not None:
-            hist, shared_pages = self._prefix.lookup(req.prompt)
+        if prefix is not None:
+            hist, shared_pages = prefix.lookup(req.prompt)
         shared_full = hist // ps
         partial = hist % ps
         cow_src = shared_pages[shared_full] if partial else \
@@ -776,7 +1359,7 @@ class DecodeEngine:
         pool.ref(shared)
         if partial:
             pool.ref([cow_src])
-        fresh = self._alloc_pages(-(-P // ps) - shared_full)
+        fresh = self._alloc_pages(-(-P // ps) - shared_full, pool, prefix)
         if fresh is None:
             pool.unref(shared)
             if partial:
@@ -790,21 +1373,117 @@ class DecodeEngine:
         pt_row = np.full((self.max_pages,), gpt_decode.PT_SENTINEL,
                          np.int32)
         pt_row[:len(pages)] = pages
-        self._pt[slot] = pt_row
-        first, self._rngs[slot] = gpt_decode.prefill_into_slot_paged(
-            self.params, self._cache, padded, sl, hist, pt_row, cow_src,
+        pt[slot] = pt_row
+        first, rng = gpt_decode.prefill_into_slot_paged(
+            self.params, cache, padded, sl, hist, pt_row, cow_src,
             slot, key, cfg=self.cfg, page_size=ps,
             temperature=self.temperature, kv_dtype=self.kv_dtype)
         if partial:
             # The fork is enqueued ahead of any later write to cow_src on
             # the same stream; its pin is no longer needed.
             pool.unref([cow_src])
+        if self._stale(epoch):
+            pool.unref(pages)        # hand back, on the same snapshot
+            return None
+        self._rngs[slot] = rng
+        if partial:
             self._count(cow_copies=1)
         if hist:
             self._count(prefix_hits=1, prefix_tokens_reused=hist)
-        if self._prefix is not None:
-            self._prefix.insert(req.prompt, pages)
+        if prefix is not None:
+            prefix.insert(req.prompt, pages)
         return first, pages
+
+    def _finish_export(self, req: _EngineRequest, slot: int, P: int,
+                       pages: List[int], first: int) -> bool:
+        """Handoff export tail (``engine.py:1927``), right after the
+        prefill: the slot's K/V trimmed to the prompt and gathered on the
+        device, copied to the host, the slot's pages freed, a lease
+        granted, and the descriptor delivered on the request's lane. The
+        slot never enters steady state."""
+        quant = self.paged and self.kv_dtype == "int8"
+        if self.paged:
+            dev = gpt_decode.export_slot_kv_paged(
+                self._cache, self._pt[slot], cfg=self.cfg,
+                page_size=self.page_size, kv_dtype=self.kv_dtype,
+                length=P)
+        else:
+            dev = gpt_decode.export_slot_kv(self._cache, slot,
+                                            cfg=self.cfg, length=P)
+        host = gpt_decode.kv_to_host(*dev)
+        k, v = host[:2]
+        ks, vs = host[2:] if quant else (None, None)
+        rng = np.asarray(self._rngs[slot], np.uint32).copy()
+        if pages:
+            self._pool.unref(pages)
+            self._pt[slot, :] = gpt_decode.PT_SENTINEL
+        payload = _ho.build_payload(
+            k=k, v=v, prompt=req.prompt, pos=P, first=first, rng=rng,
+            seed=req.seed, max_new=req.max_new, ks=ks, vs=vs,
+            kv_dtype=self.kv_dtype if quant else None,
+            page_size=self.page_size if quant else None)
+        fields, nbytes = _ho.ship_payload(payload)
+        lease_id, expires = self._leases.grant(
+            epoch=self._epoch, nbytes=nbytes, ttl_s=req.ttl_s or None)
+        desc = dict(fields)
+        desc.update({
+            "lease_id": lease_id, "epoch": self._epoch,
+            "expires_at": expires, "digest": payload["digest"],
+            "prompt": req.prompt, "pos": P, "first": first,
+            "seed": req.seed, "max_new": req.max_new,
+            "created_t": time.time(), "nbytes": nbytes})
+        # ``tokens`` counts the sampled first token, so a fault armed at
+        # token N fires on a prefill engine too.
+        self._count(handoffs_exported=1, handoff_ship_bytes=nbytes,
+                    tokens=1)
+        req.lane.q.put(("item", desc))
+        req.lane.q.put((_STREAM_END, None))
+        return True
+
+    def _admit_import(self, req: _EngineRequest, slot: int,
+                      epoch: int = -1) -> bool:
+        """Handoff import admission (``engine.py:2006``): scatter the
+        verified payload into a free slot (flat) or freshly allocated
+        pages (paged; only the covering pages are uploaded), restore the
+        slot's PRNG lane and fed token, and enter steady state where the
+        prefill engine stopped. False defers (no pages)."""
+        payload = req.handoff["payload"]
+        P = int(payload["pos"])
+        if self.paged:
+            pool, prefix, pt, cache = self._pool, self._prefix, self._pt, \
+                self._cache
+            pages = self._alloc_pages(-(-P // self.page_size), pool, prefix)
+            if pages is None:
+                return False          # out of pages: defer, keep FIFO
+            pt_row = np.full((self.max_pages,), gpt_decode.PT_SENTINEL,
+                             np.int32)
+            pt_row[:len(pages)] = pages
+            pt[slot] = pt_row
+            quant = self.kv_dtype == "int8"
+            gpt_decode.import_slot_kv_paged(
+                cache, payload["k"], payload["v"], pt_row, slot, P,
+                cfg=self.cfg, page_size=self.page_size,
+                ks_pages=payload["ks"] if quant else None,
+                vs_pages=payload["vs"] if quant else None)
+            if self._stale(epoch):
+                pool.unref(pages)     # stale driver: hand pages back
+                return True
+            # The shipped pages cover the whole prompt: later local
+            # admissions of the same prefix map them.
+            if prefix is not None and P == req.prompt.shape[0]:
+                prefix.insert(req.prompt, pages)
+        else:
+            pages = []
+            gpt_decode.import_slot_kv(self._cache, payload["k"],
+                                      payload["v"], slot, P, cfg=self.cfg)
+            if self._stale(epoch):
+                return True
+        first = int(payload["first"])
+        self._token[slot] = first
+        self._rngs[slot] = np.asarray(payload["rng"], np.uint32)
+        self._count(handoffs_imported=1,
+                    admitted=1 if req.skip == 0 else 0)
+        return self._enter_steady_state(req, slot, first, P, pages)
 
     def _cover_pages(self) -> bool:
         """Allocate-on-advance at a chunk boundary: every occupied slot
@@ -868,11 +1547,14 @@ class DecodeEngine:
         self._count(preempted=1)
         return False
 
-    def _dispatch_chunk(self, cover: bool = True):
+    def _dispatch_chunk(self, epoch: int = -1, cover: bool = True):
         """ONE k-step decode over every active slot, then per-slot
-        routing/trimming and boundary frees. ``cover=False``: the spec
-        dispatcher already ran this boundary's coverage pass before
-        falling back to a chunk."""
+        routing/trimming and boundary frees. A stale driver (restarted
+        past while its step ran) drops the result at the epoch guard.
+        ``cover=False``: the spec dispatcher already ran this boundary's
+        coverage pass before falling back to a chunk."""
+        if self._stale(epoch):
+            return
         if cover and self.paged and not self._cover_pages():
             return                    # re-run admission/coverage pass
         active = np.array([s is not None and not s.parked
@@ -880,6 +1562,8 @@ class DecodeEngine:
         n_active = int(active.sum())
         toks_np, _done, rngs_np = self._step(self._token, self._rngs,
                                              active)
+        if self._stale(epoch):
+            return                    # stale driver: drop on the floor
         self._count(dispatches=1, occupancy_sum=n_active / self.slots)
         self._peak(n_active)
         emitted = 0
@@ -899,7 +1583,7 @@ class DecodeEngine:
         if emitted:
             self._count(tokens=emitted)
 
-    def _dispatch_spec(self):
+    def _dispatch_spec(self, epoch: int = -1):
         """Draft-k-verify-once twin of :meth:`_dispatch_chunk`
         (``engine.py:2326``): the drafter proposes ``draft_k`` tokens per
         active slot, ONE batched verify scores them, and each slot
@@ -909,7 +1593,10 @@ class DecodeEngine:
         ``spec_threshold > 0``: the round verifies only when the
         drafters' mean expected acceptance over the runnable lanes
         clears the threshold, else it runs ONE plain chunk for the whole
-        pool (a split pool would pay for both steps)."""
+        pool (a split pool would pay for both steps). A stale driver
+        drops the result at the epoch guard."""
+        if self._stale(epoch):
+            return
         if self.paged and not self._cover_pages():
             return                    # re-run admission/coverage pass
         active = np.array([s is not None and not s.parked
@@ -923,11 +1610,13 @@ class DecodeEngine:
             if not any(e is None for e in ests) \
                     and sum(ests) / n_active < self.spec_threshold:
                 self._count(spec_fallback_rounds=1)
-                self._dispatch_chunk(cover=False)
+                self._dispatch_chunk(epoch, cover=False)
                 return
         draft = self._drafter.propose(active, self._token)
         com_np, acc_np, rngs_np = self._verify(self._token, draft,
                                                self._rngs, active)
+        if self._stale(epoch):
+            return                    # stale driver: drop on the floor
         accepted = int(acc_np[active].sum())
         self._count(dispatches=1, occupancy_sum=n_active / self.slots,
                     spec_rounds=1, spec_proposed=self.draft_k * n_active,

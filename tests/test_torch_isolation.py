@@ -1,12 +1,15 @@
-"""The port stands alone: ``ray_tpu_torch`` imports neither ``jax`` nor
-anything of the JAX package ``ray_tpu``.
+"""The port stands alone: ``ray_tpu_torch`` and ``chip_smoke.py`` import
+neither ``jax`` nor ``ml_dtypes`` nor anything of the JAX package
+``ray_tpu``.
 
 Checked twice: by an AST scan of every file in the package (the threefry
 PRNG and the drafters, which reimplement JAX's and copy the reference's,
-included), and by serving nano requests (greedy, seeded temperature > 0,
-and speculative with the n-gram drafter) and taking a nano train step
-(flash attention, ``dots`` remat) in a fresh interpreter where ``jax`` is
-poisoned in ``sys.modules`` and an import hook refuses ``ray_tpu`` and
+included) and of ``chip_smoke.py``, and by serving nano requests
+(greedy, seeded temperature > 0, and speculative with the n-gram
+drafter), handing one request off from a prefill engine to a decode
+engine, and taking a nano train step (flash attention, ``dots`` remat)
+in a fresh interpreter where ``jax`` and ``ml_dtypes`` are poisoned in
+``sys.modules`` and an import hook refuses them and ``ray_tpu`` and
 ``ray_tpu.*`` (but not ``ray_tpu_torch``). A subprocess, because this
 suite's conftest imports JAX into the test process.
 """
@@ -21,15 +24,19 @@ PKG = os.path.join(ROOT, "ray_tpu_torch")
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "ray_tpu")
+    return top in FORBIDDEN
+
+
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "ray_tpu")
 
 
 def test_no_jax_or_reference_imports_in_source():
     files = [os.path.join(d, f) for d, _, fs in os.walk(PKG)
              for f in fs if f.endswith(".py")]
     assert len(files) >= 10
-    for must in ("_private/prng.py", "serve/draft.py"):
+    for must in ("_private/prng.py", "serve/draft.py", "serve/handoff.py"):
         assert os.path.join(PKG, must) in files, must
+    files.append(os.path.join(ROOT, "chip_smoke.py"))
     bad = []
     for path in files:
         with open(path) as fh:
@@ -49,13 +56,15 @@ _CHILD = r"""
 import importlib.abc
 import sys
 
+BLOCKED = ("jax", "jaxlib", "ml_dtypes", "ray_tpu")
 sys.modules["jax"] = None          # `import jax` raises ImportError
+sys.modules["ml_dtypes"] = None
 
 
 class _Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         top = name.split(".")[0]
-        if top in ("jax", "jaxlib", "ray_tpu"):
+        if top in BLOCKED:
             raise ImportError(f"blocked import of {name}")
         return None
 
@@ -68,6 +77,7 @@ import numpy as np
 import torch
 
 from ray_tpu_torch.models import gpt
+from ray_tpu_torch.serve._stream import _EngineStream
 from ray_tpu_torch.serve.engine import DecodeEngine
 
 cfg = gpt.CONFIGS["nano"]
@@ -90,13 +100,31 @@ for kw in (dict(temperature=0.8), dict(spec_decode="ngram", paged=False)):
     finally:
         eng.shutdown()
     assert out.shape == (9,) and (out < cfg.vocab_size).all(), (kw, out)
+# One handoff: a bf16 prefill engine exports, a decode engine imports.
+bcfg = dataclasses.replace(cfg, dtype=torch.bfloat16)
+pre = DecodeEngine(params, bcfg, slots=2, chunk=4, max_len=64,
+                   prompt_buckets=(8, 16), page_size=8, role="prefill",
+                   device="cpu")
+dec = DecodeEngine(params, bcfg, slots=2, chunk=4, max_len=64,
+                   prompt_buckets=(8, 16), paged=False, role="decode",
+                   device="cpu")
+try:
+    desc = pre.handoff(np.arange(7, dtype=np.int32), 6, seed=1)
+    assert desc["payload"]["k"].dtype == np.uint16
+    out = np.concatenate(list(_EngineStream(dec.admit_prefilled(desc))))
+    ho = dec.stats()["handoff"]
+finally:
+    pre.shutdown()
+    dec.shutdown()
+assert out.shape == (6,) and ho["imported"] == 1, (out, ho)
+assert ho["import_fallbacks"] == 0, ho
 tcfg = dataclasses.replace(cfg, attn_backend="flash", remat="dots")
 init, step = gpt.make_train_step(tcfg, device="cpu")
 state, metrics = step(init(seed=0), {"tokens": np.arange(
     2 * 17, dtype=np.int64).reshape(2, 17) % cfg.vocab_size})
 assert state["step"] == 1 and bool(torch.isfinite(metrics["loss"]))
 leaked = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "ray_tpu")
+                if m.split(".")[0] in BLOCKED
                 and sys.modules[m] is not None)
 assert not leaked, leaked
 print("ISOLATED-OK")
