@@ -71,6 +71,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
    stream equal to the uninterrupted one, ``supervise`` False after a
    second death, and ``drain`` of a busy engine (every stream equal to
    the colocated kernel engine's);
+   then Mixture-of-Experts serving: nano with 4 experts (``init_params``
+   on the card bit-equal to the CPU's; f32 streams through K1 equal to
+   the CPU's on the CPU tests' drop-forcing pool, 14 requests for 12
+   slots at capacity factor 0.25, at T=0 and T=0.8, and at 1.25); then
+   GPT-2 small with 8 experts, top-2 (bf16, the reference's draw for
+   seed 0, timed) serving the 12 requests through the same engine: every
+   stream completes, K1 runs ``n_layer * chunk`` times per dispatch, the
+   streams pass the MoE bf16 gate (``moe_gate``: every route and token
+   decision K1 makes along the gather engine's replayed run is a
+   rounding near-tie) and both injected K1 faults (``pos-1``,
+   ``scale``) fail it; an int8 pool (count budget) and f32 (kernel vs
+   gather within ``MAX_DIVERGED["f32"]``); an n-gram spec engine; a
+   paged→paged fp handoff equal to the colocated kernel engine;
+   TTFT/TPOT/tok/s beside the dense engine's; a profiled window with
+   device time grouped into K1, GEMMs and routing kernels;
 7. training: the flash and xla attention backends at full width (B=4,
    S=1024) from the same weights and batch (gradients and the loss
    after 2 steps within stated tolerances); nano at f32, 3 steps on the
@@ -79,7 +94,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
    shape (B=32, S=1024, bf16, ``remat="dots"``, ``attn_backend="flash"``):
    3 warm-up and 10 timed steps, the loss finite and falling, the K2/K3
    launch counts equal to the derived count, tok/s, MFU, peak memory,
-   and a profiled step's device busy share.
+   and a profiled step's device busy share; then the same for the MoE
+   model: flash vs xla at f32 compute (a bf16 rounding difference can
+   flip a route), nano with 4 experts card vs CPU (losses and
+   ``moe_aux``), and GPT-2 small with 8 experts at bench.py's shape
+   (loss falling, ``moe_aux`` finite and positive, K2/K3 24/12/12 per
+   step, MFU with its FLOP count written out).
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Needs one card, no network.
@@ -167,7 +187,10 @@ def device_ms(fn, iters: int, warmup: int = 3) -> float:
     kernel, copy and memset that ``iters`` calls ran, over ``iters``. A
     short kernel launched back to back runs faster than the host can
     launch it, so CUDA events around the run (:func:`cuda_ms`) would time
-    the host; this leaves the host's gaps out."""
+    the host; this leaves the host's gaps out. The profiler has come back
+    empty, rarely, from a window of tiny kernels on the card (the greedy
+    argmax below); such a window is profiled again, up to three times in
+    all, and the log says so."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -175,15 +198,18 @@ def device_ms(fn, iters: int, warmup: int = 3) -> float:
     for i in range(warmup):
         fn(i)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(i)
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    if us <= 0:
-        raise RuntimeError("the profiler recorded no device time")
-    return us / iters / 1e3
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(i)
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / iters / 1e3
+        log(f"device_ms: the profiler recorded no device time in window "
+            f"{attempt + 1} of 3")
+    raise RuntimeError("the profiler recorded no device time")
 
 
 # K1's decode shapes. "small": GPT-2 small's serving engine (16 slots,
@@ -624,28 +650,31 @@ def _train_batch(cfg, B, S, seed, device):
         0, min(cfg.vocab_size, 50257), (B, S + 1))).to(device)}
 
 
-def train_phase(card: str) -> dict:
-    """GPT-2 small trained through ``make_train_step`` at bench.py's
-    shape with the flash kernels: 3 warm-up steps, then 10 timed steps on
-    one repeated batch, the counts set to 0 just before them. Then one
-    profiled step. Returns the launches counted in the timed steps."""
+def train_phase(card: str, n_experts: int = 0) -> dict:
+    """GPT-2 small (with ``n_experts`` experts, top-2) trained through
+    ``make_train_step`` at bench.py's shape with the flash kernels: 3
+    warm-up steps, then 10 timed steps on one repeated batch, the counts
+    set to 0 just before them; the loss finite and falling (an MoE
+    model's ``moe_aux`` finite and above 0). Then one profiled step.
+    Returns the launches counted in the timed steps."""
     import dataclasses
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.models import gpt, moe
     from ray_tpu_torch.ops import flash_attention as fa
 
     cfg = dataclasses.replace(gpt.CONFIGS["small"], remat="dots",
-                              attn_backend="flash")
+                              attn_backend="flash", n_experts=n_experts)
+    label = f"train small MoE ({n_experts} experts)" if n_experts else \
+        "train small"
     init, step = gpt.make_train_step(cfg, device="cuda")
     state = init(seed=0)
     batch = _train_batch(cfg, TRAIN_B, TRAIN_S, 5, "cuda")
-    losses = []
+    out = []
     for _ in range(3):
         state, m = step(state, batch)
-        losses.append(m["loss"])
+        out.append(m)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     iters = 10
@@ -653,13 +682,14 @@ def train_phase(card: str) -> dict:
     t0 = time.perf_counter()
     for _ in range(iters):
         state, m = step(state, batch)
-        losses.append(m["loss"])
+        out.append(m)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = dict(fa.launches)
     peak = torch.cuda.max_memory_allocated()
-    losses = [float(x) for x in losses]
-    L = cfg.n_layer
+    losses = [float(m["loss"]) for m in out]
+    auxs = [float(m["moe_aux"]) for m in out if "moe_aux" in m]
+    L, d, f, T = cfg.n_layer, cfg.d_model, cfg.d_ff, TRAIN_B * TRAIN_S
     # Per step: K2 once per layer in forward and once more per layer when
     # the remat policy recomputes the block (dots and full do: the flash
     # call is not a matrix product); K3a and K3b once per layer.
@@ -667,65 +697,95 @@ def train_phase(card: str) -> dict:
     want = {"flash_attention_fwd": iters * L * (2 if recompute else 1),
             "flash_attention_bwd_dkdv": iters * L,
             "flash_attention_bwd_dq": iters * L}
-    tok_s = TRAIN_B * TRAIN_S * iters / dt
-    flops_tok = 6 * cfg.num_params() + 12 * L * TRAIN_S * cfg.d_model
-    mfu = tok_s * flops_tok / BF16_FLOPS
-    log(f"train small bf16 [{card}] (B={TRAIN_B}, S={TRAIN_S}, remat=dots, "
-        f"flash): {tok_s:.1f} tok/s, step {dt / iters * 1e3:.3f} ms, MFU "
-        f"{mfu:.4f} (bench.py FLOPs/token {flops_tok} over {BF16_FLOPS:g}),"
-        f" peak memory {peak / 2**30:.3f} GiB")
-    log(f"train losses: {[round(x, 4) for x in losses]}")
-    log(f"train launches in {iters} steps: {counts} (want {want}: "
+    flops_tok = 6 * cfg.num_params() + 12 * L * TRAIN_S * d
+    what = f"bench.py FLOPs/token {flops_tok}"
+    flops = T * flops_tok
+    if n_experts:
+        # Forward + backward (3x the forward's products): bench.py's dense
+        # count less the dense FFN, plus the router (d x E per token and
+        # layer) and the experts at capacity (E x C rows of two d x f
+        # products per layer, capacity padding included).
+        E = n_experts
+        C = moe.capacity(T, E, cfg.expert_top_k, cfg.capacity_factor)
+        dense = flops_tok - 6 * L * 2 * d * f
+        flops = T * (dense + 6 * L * d * E) + 6 * L * 2 * E * C * d * f
+        what = (f"{flops:.6g} FLOPs a step = {T} tokens x ({dense} dense + "
+                f"{6 * L * d * E} router) + experts 6 x {L} x 2 x {E} x {C} "
+                f"x {d} x {f}; top-{cfg.expert_top_k}, capacity {C}")
+    log(f"{label} bf16 [{card}] (B={TRAIN_B}, S={TRAIN_S}, remat=dots, "
+        f"flash): {T * iters / dt:.1f} tok/s, step {dt / iters * 1e3:.3f} "
+        f"ms, MFU {flops * iters / dt / BF16_FLOPS:.4f} ({what}, over "
+        f"{BF16_FLOPS:g}), peak memory {peak / 2**30:.3f} GiB")
+    log(f"{label} losses: {[round(x, 4) for x in losses]}"
+        + (f"; moe_aux: {[round(x, 4) for x in auxs]}" if n_experts else ""))
+    log(f"{label} launches in {iters} steps: {counts} (want {want}: "
         f"n_layer={L} x (2 if remat recomputes else 1) K2, n_layer each "
         f"K3a/K3b, per step)")
-    if not all(map(math.isfinite, losses)):
-        raise AssertionError("training loss is not finite")
+    if not all(map(math.isfinite, losses + auxs)):
+        raise AssertionError(f"{label}: loss or moe_aux is not finite")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"training loss did not fall: {losses}")
+        raise AssertionError(f"{label}: loss did not fall: {losses}")
+    if n_experts and not min(auxs) > 0:
+        raise AssertionError(f"{label}: moe_aux is not positive: {auxs}")
     if counts != want:
-        raise AssertionError(f"flash launches {counts} != {want}")
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, m = step(state, batch)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    busy_ms, rows = device_rows(prof)
-    if busy_ms == 0:
-        log("train profile: the profiler recorded no device time; device "
-            "busy share not measured")
-    else:
-        log(f"train profile [{card}]: one step, device busy {busy_ms:.3f} "
-            f"ms of {wall * 1e3:.3f} ms wall (profiled) = "
-            f"{busy_ms / (wall * 1e3):.3f}, idle "
-            f"{1 - busy_ms / (wall * 1e3):.3f}")
-        for us, key, count in sorted(rows, reverse=True)[:10]:
-            log(f"  {us / 1e3:10.3f} ms  {count:6d} x  {key[:90]}")
-        flash = []
-        for us, key, count in sorted(rows):
-            m = re.search(r"flash_(fwd|bwd_dkdv|bwd_dq)_bf16", key)
-            if m:
-                flash.append((us, f"{m.group(0)} {us / 1e3:.3f} ms x {count}"))
-        log(f"train profile: K2/K3 {sum(us for us, _ in flash) / 1e3:.3f} "
-            f"ms of the step: " + "; ".join(text for _, text in flash))
+        raise AssertionError(f"{label}: flash launches {counts} != {want}")
+    profile_step(step, state, batch, card, label)
     del state
     torch.cuda.empty_cache()
     return counts
 
 
-def flash_vs_xla_phase(card: str) -> None:
-    """The flash and xla attention backends on the card, full GPT-2-small
-    width, B=4, S=1024, bf16, the same weights and batch: per-parameter
-    gradient error and the loss after 2 steps."""
+def profile_step(step, state, batch, card, label) -> None:
+    """One profiled training step: device busy share, the top kernels and
+    K2/K3's share of the step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_ms, rows = device_rows(prof)
+    if busy_ms == 0:
+        log(f"{label} profile: the profiler recorded no device time; "
+            f"device busy share not measured")
+        return
+    log(f"{label} profile [{card}]: one step, device busy {busy_ms:.3f} "
+        f"ms of {wall * 1e3:.3f} ms wall (profiled) = "
+        f"{busy_ms / (wall * 1e3):.3f}, idle "
+        f"{1 - busy_ms / (wall * 1e3):.3f}")
+    for us, key, count in sorted(rows, reverse=True)[:10]:
+        log(f"  {us / 1e3:10.3f} ms  {count:6d} x  {key[:90]}")
+    flash = []
+    for us, key, count in sorted(rows):
+        m = re.search(r"flash_(fwd|bwd_dkdv|bwd_dq)_bf16", key)
+        if m:
+            flash.append((us, f"{m.group(0)} {us / 1e3:.3f} ms x {count}"))
+    log(f"{label} profile: K2/K3 {sum(us for us, _ in flash) / 1e3:.3f} "
+        f"ms of the step: " + "; ".join(text for _, text in flash))
+
+
+def flash_vs_xla_phase(card: str, base=None) -> None:
+    """The flash and xla attention backends on the card, full width,
+    B=4, S=1024, the same weights and batch: per-parameter gradient error
+    and the loss after 2 steps. ``base`` defaults to GPT-2 small in bf16;
+    the MoE model runs at f32 (a bf16 rounding difference in attention
+    can flip a route, which moves a whole token's FFN output; at f32 the
+    two backends differ by about 1e-6 and a flip needs a router margin
+    that small, so the bf16 tolerances hold with room)."""
     import dataclasses
 
     import torch
 
     from ray_tpu_torch.models import gpt
 
-    base = gpt.CONFIGS["small"]
+    base = base or gpt.CONFIGS["small"]
+    moe = f" MoE {base.n_experts} experts" if base.n_experts else ""
+    what = (f"small{moe}, B=4, S={TRAIN_S}, "
+            f"{str(base.dtype).split('.')[-1]}")
     batch = _train_batch(base, 4, TRAIN_S, 6, "cuda")
     grads, loss2 = {}, {}
     for backend in ("flash", "xla"):
@@ -744,7 +804,7 @@ def flash_vs_xla_phase(card: str) -> None:
             for n in grads["xla"]}
     worst = max(errs, key=errs.get)
     dl = abs(loss2["flash"] - loss2["xla"])
-    log(f"flash vs xla [{card}] (small, B=4, S={TRAIN_S}, bf16): gradient "
+    log(f"flash vs xla [{card}] ({what}): gradient "
         f"relative err max {errs[worst]:.4g} ({worst}; tolerance "
         f"{GRAD_TOL}); loss after 2 steps flash {loss2['flash']:.6f} xla "
         f"{loss2['xla']:.6f} |diff| {dl:.3g} (tolerance {LOSS2_TOL})")
@@ -755,9 +815,11 @@ def flash_vs_xla_phase(card: str) -> None:
     torch.cuda.empty_cache()
 
 
-def nano_train_phase() -> None:
-    """nano at f32: 3 steps on the card through the kernels against 3
-    steps on the CPU through the plain versions, same weights and batch."""
+def nano_train_phase(n_experts: int = 0) -> None:
+    """nano at f32 (with ``n_experts`` experts, top-2): 3 steps on the
+    card through the kernels against 3 steps on the CPU through the plain
+    versions, same weights and batch; losses (and ``moe_aux``) within
+    ``NANO_TRAIN_TOL``."""
     import dataclasses
 
     import torch
@@ -766,7 +828,7 @@ def nano_train_phase() -> None:
     from ray_tpu_torch.ops import flash_attention as fa
 
     cfg = dataclasses.replace(gpt.CONFIGS["nano"], dtype=torch.float32,
-                              attn_backend="flash")
+                              attn_backend="flash", n_experts=n_experts)
     weights = gpt.init_params(cfg, seed=0, device="cpu")
     losses = {}
     for device in ("cpu", "cuda"):
@@ -778,16 +840,20 @@ def nano_train_phase() -> None:
         for _ in range(3):
             state, m = step(state, batch)
             out.append(float(m["loss"]))
+            if n_experts:
+                out.append(float(m["moe_aux"]))
         losses[device] = out
         ran = {n: fa.launches[n] - before[n] for n in before}
         if device == "cuda" and not all(ran.values()):
             raise AssertionError(f"nano on the card skipped a kernel: {ran}")
     diff = max(abs(a - b) for a, b in zip(losses["cuda"], losses["cpu"]))
-    log(f"nano f32 training: card+kernels {losses['cuda']} vs CPU+plain "
+    what = f"nano MoE ({n_experts} experts)" if n_experts else "nano"
+    log(f"{what} f32 training (losses{', moe_aux' if n_experts else ''}): "
+        f"card+kernels {losses['cuda']} vs CPU+plain "
         f"{losses['cpu']}, max |diff| {diff:.3g} (tolerance "
         f"{NANO_TRAIN_TOL})")
     if not diff <= NANO_TRAIN_TOL:
-        raise AssertionError("nano f32 training: card and CPU disagree")
+        raise AssertionError(f"{what} f32 training: card and CPU disagree")
 
 
 def serve(params, cfg, reqs, *, device, attn_kernel=None, seeds=None,
@@ -869,10 +935,11 @@ def device_rows(prof):
     return sum(r[0] for r in rows) / 1e3, rows
 
 
-def profile_phase(params, cfg, reqs, card):
+def profile_phase(params, cfg, reqs, card, label="profile"):
     """Where a serve window's time goes on the card: the profiler's device
     time by kernel over the window's wall time (the profiler's own host
-    cost inflates the wall, so the idle share is an upper bound)."""
+    cost inflates the wall, so the idle share is an upper bound), grouped
+    into K1, the GEMMs, routing's sort/scan/index kernels and the rest."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -883,15 +950,23 @@ def profile_phase(params, cfg, reqs, card):
                                         attn_kernel="cuda")
     busy_ms, rows = device_rows(prof)
     if busy_ms == 0:
-        log("profile: the profiler recorded no device time; device busy "
-            "share not measured")
+        log(f"{label}: the profiler recorded no device time; device busy "
+            f"share not measured")
         return
-    log(f"profile [{card}]: {len(reqs)} requests, "
+    groups = {"K1": r"paged_attention", "GEMM": r"gemm|xmma|nvjet|cutlass",
+              "sort/scan/index": r"sort|scan|radix|index|scatter|gather"}
+    sums = dict.fromkeys(list(groups) + ["other"], 0.0)
+    for us, key, _ in rows:
+        name = next((g for g, pat in groups.items()
+                     if re.search(pat, key, re.I)), "other")
+        sums[name] += us / 1e3
+    log(f"{label} [{card}]: {len(reqs)} requests, "
         f"{sum(map(len, toks))} tokens, {stats['dispatches']} dispatches "
         f"in {wall * 1e3:.3f} ms wall (profiled); device busy "
         f"{busy_ms:.3f} ms = {busy_ms / (wall * 1e3):.3f} of the wall, "
-        f"idle {1 - busy_ms / (wall * 1e3):.3f}")
-    for us, key, count in sorted(rows, reverse=True)[:8]:
+        f"idle {1 - busy_ms / (wall * 1e3):.3f}; by group (ms): "
+        + ", ".join(f"{g} {v:.3f}" for g, v in sums.items()))
+    for us, key, count in sorted(rows, reverse=True)[:12]:
         log(f"  {us / 1e3:10.3f} ms  {count:6d} x  {key[:90]}")
 
 
@@ -1475,6 +1550,479 @@ def lifecycle_phase(params, cfg, reqs, greedy, card) -> None:
                              "kernel engine")
 
 
+# ------------------------------------------------------------------- MoE
+#: The MoE model on the card: the repo's GPT-2 small with 8 experts and
+#: the reference's own MoE defaults (top-2, capacity factor 1.25, aux
+#: weight 0.01), built with ``dataclasses.replace`` as the reference's
+#: tests build theirs (Mixtral-8x7B's routing shape at GPT-2-small width).
+MOE_EXPERTS = 8
+#: The CPU tests' drop-forcing pool (``tests/test_torch_moe_engine.py``),
+#: nano with 4 experts: 14 requests for 12 slots at capacity factor 0.25,
+#: so every expert holds 8 pairs and overflows while finished slots sit,
+#: inactive, before active ones.
+NANO_MOE_EXPERTS = 4
+MOE_LENS = [5, 9, 3, 12, 7, 16, 4, 11, 6, 14, 8, 10, 13, 5]
+MOE_MAX_NEWS = [3, 5, 2, 6, 20, 24, 18, 22, 19, 21, 23, 20, 17, 16]
+MOE_SEEDS = [3, 0, 7, 2 ** 31 - 1, -3, 11, 5, 8, 9, 1, 2, 4, 6, 10]
+MOE_NANO_KW = dict(slots=12, chunk=4, max_len=64, page_size=8,
+                   prompt_buckets=(8, 16))
+# The MoE bf16 gate (``moe_gate``). In an MoE pool the experts' capacity
+# is shared by every row, so a stream can part where a rounding flip
+# changed a route in any row at any earlier step, not only at a near-tie
+# of its own final logits, and a forward of one request alone
+# (``tie_ratios``) does not compute what the pool computed. Nor do the
+# streams stay comparable after the pool's first parting. So the gate
+# replays the gather engine's own device calls, teacher-forced with the
+# tokens it fed (``replay``): in bf16 through the gather version (which
+# must reproduce the gather engine token for token), in f32 along those
+# bf16 routes, and in bf16 through K1 along the same routes, recording
+# the route K1's arithmetic would take at every MoE call and the token
+# it would take at every decode step. Forcing the routes keeps the K1
+# replay one rounding away from the gather replay over the whole run, so
+# EVERY decision is held, not only the first parting:
+# - each route K1 would flip must join two experts within ROUTE_ERRS *
+#   eps of each other in the f32 router probabilities, eps being the
+#   call's largest bf16-vs-f32 probability error (each bf16 path sits
+#   within about eps of f32, so a rounding flip needs a margin within
+#   their sum); each token it would flip must have both tokens within
+#   TIE_ERRS * eps of the top of the f32 logits, eps the step's largest
+#   bf16-vs-f32 logit error, as the dense gate holds it;
+# - every K1 call of the run must lie within ATTN_ULPS bf16 ulps of its
+#   plain version on the same inputs (in units of 2**-8 of the call's
+#   largest output).
+# On an H100 80GB HBM3 at 700 W over 3 draws (PERF.md; the divergence
+# script with --moe) a correct K1 flipped 71-91 routes and 9-15 tokens
+# per run, each within 0.75-0.84 of its bound, and lay 2.20-2.47 ulps
+# from its plain version; with K1's output 3 % too large (``scale``) the
+# worst flip sat at 2.61-2.72 and K1 9.3-10.2 ulps off, one position
+# short (``pos-1``) at 20-58 and 200-303 ulps. A per-row eps instead put
+# a correct K1's worst route flip at 3.46: eight probabilities are too
+# few for a row's largest error to bound the other path's.
+ROUTE_ERRS = 2.0
+ATTN_ULPS = 4
+
+
+class CallLog:
+    """While active, records every paged prefill and decode chunk a new
+    engine makes (``gpt_decode.prefill_into_slot_paged`` /
+    ``decode_chunk_slots_paged``): arguments copied at the call, and each
+    chunk's tokens, so that :func:`replay` can run the same calls again."""
+
+    def __enter__(self):
+        import numpy as np
+
+        from ray_tpu_torch.models import gpt_decode as gd
+
+        self.calls, self.pool = [], None
+        self._saved = pre, chunk = (gd.prefill_into_slot_paged,
+                                    gd.decode_chunk_slots_paged)
+
+        def prefill(params, cache, *args, **kw):
+            self.calls.append(("prefill", tuple(np.array(a, copy=True)
+                                                for a in args), kw))
+            return pre(params, cache, *args, **kw)
+
+        def decode(params, cache, token, rngs, active, **kw):
+            out = chunk(params, cache, token, rngs, active, **kw)
+            self.pool = (cache["pos"].shape[0], cache["k"].shape[1],
+                         kw["page_size"], kw["kv_dtype"])
+            self.calls.append(("chunk", (np.array(token, np.int32),
+                                         np.array(active, bool),
+                                         np.array(kw["pt"])), kw,
+                               out[0].copy()))
+            return out
+
+        gd.prefill_into_slot_paged, gd.decode_chunk_slots_paged = \
+            prefill, decode
+        return self
+
+    def __exit__(self, *exc):
+        from ray_tpu_torch.models import gpt_decode as gd
+
+        gd.prefill_into_slot_paged, gd.decode_chunk_slots_paged = \
+            self._saved
+
+
+def replay(clog, params, cfg, kernel, *, force=None, k1=None):
+    """Run ``clog``'s calls again on a fresh pool of the same kind (fp or
+    int8): each prefill with
+    its recorded arguments, each chunk one step at a time fed the tokens
+    the recorded engine fed (teacher-forced), attention by ``kernel``
+    (``"cuda"``: K1, or ``k1`` standing in for it, e.g. with a fault).
+    ``force`` (one ``Routes`` per MoE call) imposes those routes, with
+    gates from this run's probabilities. Returns (per MoE call: (decode
+    step index, probs, the routes this run's probabilities pick), per
+    decode step: (active, the fed token, f32 logits), whether every
+    attention output was finite, and the largest gap between a K1 call's
+    output and its plain version's on the same inputs, relative to that
+    call's largest plain output)."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import gpt_decode as gd
+    from ray_tpu_torch.models import moe
+
+    dev = torch.device("cuda")
+    slots, n_pages, ps, kv = clog.pool
+    cache = gd.init_paged_cache(cfg, slots, n_pages, ps, kv, dev)
+    calls, steps = [], []
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    worst = torch.zeros((), dtype=torch.float32, device=dev)
+    route, attend = moe.route, gd.paged_attention_cuda
+
+    def rec(probs, top_k, cap):
+        own = route(probs, top_k, cap)
+        calls.append((len(steps), probs.detach(), own))
+        if force is None:
+            return own
+        f = force[len(calls) - 1]
+        g = probs.gather(1, f.expert.t())
+        g = g / g.sum(-1, keepdim=True).clamp_min(1e-9)
+        return moe.Routes(f.expert, f.slot, f.keep, g.t())
+
+    def k1_checked(*a, **kw):
+        out = (k1 or attend)(*a, **kw)
+        finite.logical_and_(torch.isfinite(out).all())
+        plain = gd._paged_attention_gather(*a, **kw).float()
+        torch.maximum(worst, (out.float() - plain).abs().max()
+                      / plain.abs().max().clamp_min(1e-30), out=worst)
+        return out
+
+    moe.route, gd.paged_attention_cuda = rec, k1_checked
+    try:
+        with torch.no_grad():
+            for call in clog.calls:
+                if call[0] == "prefill":
+                    gd.prefill_into_slot_paged(params, cache, *call[1],
+                                               **dict(call[2], cfg=cfg))
+                    continue
+                (token, active, pt), out = call[1], call[3]
+                pos = cache["pos"].cpu().numpy().astype(np.int64)
+                tok = token
+                for s in range(out.shape[1]):
+                    logits = gd._slot_decode_step_paged(
+                        params, cache, torch.from_numpy(tok).to(dev),
+                        active, pt, pos, cfg, ps, kv, kernel)
+                    pos = pos + active
+                    tok = np.ascontiguousarray(out[:, s])
+                    steps.append((active, tok, logits))
+    finally:
+        moe.route, gd.paged_attention_cuda = route, attend
+    return calls, steps, bool(finite), float(worst)
+
+
+def moe_gate(got, ref, got_log, ref_log, params, cfg, k1=None):
+    """Hold the bf16 MoE kernel engine's streams (``got``, its calls
+    ``got_log``) against the gather engine's (``ref``, ``ref_log``):
+    identical up to the pool's first parting, and every decision K1's
+    arithmetic would flip along the replayed gather run a rounding
+    near-tie, K1 within ``ATTN_ULPS`` of its plain version (the bounds
+    above). ``k1`` stands in for K1 in the replay as it did in the kernel
+    engine (an injected fault). The gather and f32 replays are kept on
+    ``ref_log`` for the next call. Returns (passed, what was found)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    if not parting_steps(got, ref):
+        return True, "no stream parted"
+    first, t = None, 0
+    for i, (a, b) in enumerate(zip(ref_log.calls, got_log.calls)):
+        if a[0] != b[0]:
+            return False, f"call {i}: the engines made different calls"
+        if a[0] == "prefill":
+            continue
+        if not (np_equal(a[1][0], b[1][0]) and np_equal(a[1][1], b[1][1])):
+            return False, f"call {i}: the engines' inputs differ"
+        diff = ((a[3] != b[3]) & a[1][1][:, None]).any(0)
+        if diff.any():
+            first = t + int(diff.argmax())
+            break
+        t += a[3].shape[1]
+    if first is None:
+        return False, "the streams part but no decode call's tokens differ"
+    if not hasattr(ref_log, "base"):
+        A, A_steps, *_ = replay(ref_log, params, cfg, "gather")
+        for j, (_, tok, lg) in enumerate(A_steps):
+            if not np_equal(lg.argmax(-1).cpu().numpy(), tok):
+                return False, (f"the gather replay does not reproduce the "
+                               f"gather engine at decode step {j}")
+        c32 = dataclasses.replace(cfg, dtype=torch.float32)
+        F, F_steps, *_ = replay(ref_log, {k: v.float() for k, v in
+                                          params.items()}, c32, "gather",
+                                force=[r for _, _, r in A])
+        ref_log.base = A, A_steps, F, F_steps
+    A, A_steps, F, F_steps = ref_log.base
+    K, K_steps, finite, attn = replay(ref_log, params, cfg, "cuda",
+                                      force=[r for _, _, r in A], k1=k1)
+    if not finite:
+        return False, "K1 gave a non-finite attention output"
+    noise = {"route": 0.0, "logit": 0.0}
+    flips = []                     # (decode step, kind, distance from tie)
+    for (step, pa_, ra), (_, pf, _), (_, pk, rk) in zip(A, F, K):
+        eps, gap = (float((x - pa_).abs().max()) for x in (pf, pk))
+        if not gap:
+            continue
+        noise["route"] = max(noise["route"], gap / eps if eps else math.inf)
+        for r in (ra.expert != rk.expert).any(0).nonzero()[:, 0].tolist():
+            j = int((ra.expert[:, r] != rk.expert[:, r]).int().argmax())
+            ea, ek = int(ra.expert[j, r]), int(rk.expert[j, r])
+            margin = abs(float(pf[r, ea] - pf[r, ek]))
+            flips.append((step, "route", margin / (ROUTE_ERRS * eps)))
+    for j, ((act, tok, la), (_, _, lf), (_, _, lk)) in enumerate(
+            zip(A_steps, F_steps, K_steps)):
+        rows = torch.from_numpy(np.flatnonzero(act)).to(la.device)
+        eps, gap = (float((x[rows] - la[rows]).abs().max())
+                    for x in (lf, lk))
+        if gap:
+            noise["logit"] = max(noise["logit"],
+                                 gap / eps if eps else math.inf)
+        mine = lk.argmax(-1).cpu().numpy()
+        for r in np.flatnonzero(act & (mine != tok)).tolist():
+            L = lf[r]
+            top = float(L.max() - torch.minimum(L[int(tok[r])],
+                                                L[int(mine[r])]))
+            flips.append((j, "token", top / (TIE_ERRS * eps)))
+    if not flips or min(f[0] for f in flips) > first:
+        return False, (f"the K1 replay flips nothing before the engines' "
+                       f"first parting (decode step {first})")
+    worst = max(flips, key=lambda f: f[2])
+    n_route = sum(f[1] == "route" for f in flips)
+    ulps = attn / 2.0 ** -8
+    return worst[2] <= 1 and ulps <= ATTN_ULPS, (
+        f"first parting at decode step {first} of {len(A_steps)}; along "
+        f"the gather run K1 flips {n_route} routes (of {len(A)} MoE calls)"
+        f" and {len(flips) - n_route} tokens, the first at step "
+        f"{min(f[0] for f in flips)}, the farthest from a tie at "
+        f"{worst[2]:.4f} of its bound ({worst[1]} at step {worst[0]}; "
+        f"bound 1); K1 within {ulps:.3f} bf16 ulps of its plain version "
+        f"(bound {ATTN_ULPS}); K1-vs-gather router probabilities and "
+        f"logits {noise['route']:.3f} and {noise['logit']:.3f} times the "
+        f"gather path's own bf16-vs-f32 error (not bounded)")
+
+
+def moe_nano_phase(card) -> None:
+    """Nano MoE on the card: ``init_params`` bit-equal to the CPU's, and
+    f32 streams served through K1 equal to the CPU's through the plain
+    version, on the CPU tests' drop-forcing pool (capacity factor 0.25)
+    at T=0 and T=0.8 and with every pair kept (1.25) at T=0."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    base = dataclasses.replace(gpt.CONFIGS["nano"],
+                               n_experts=NANO_MOE_EXPERTS)
+    p_cpu = gpt.init_params(base, seed=0, device="cpu")
+    p_card = gpt.init_params(base, seed=0, device="cuda")
+    if not all(torch.equal(p_card[k].cpu().view(torch.int32),
+                           v.view(torch.int32)) for k, v in p_cpu.items()):
+        raise AssertionError("init_params(nano MoE): the card's draw "
+                             "differs from the CPU's")
+    rng = np.random.default_rng(1)
+    reqs = [(rng.integers(0, base.vocab_size, (n,)).astype(np.int32), m)
+            for n, m in zip(MOE_LENS, MOE_MAX_NEWS)]
+    for cf, temp in ((0.25, 0.0), (0.25, 0.8), (1.25, 0.0)):
+        cfg = dataclasses.replace(base, dtype=torch.float32,
+                                  capacity_factor=cf)
+        kw = dict(MOE_NANO_KW, temperature=temp,
+                  seeds=MOE_SEEDS if temp else None)
+        ref, *_ = serve(p_cpu, cfg, reqs, device=torch.device("cpu"),
+                        attn_kernel="gather", **kw)
+        pa.launches = 0
+        got, _, _, _, st = serve(p_cpu, cfg, reqs,
+                                 device=torch.device("cuda"),
+                                 attn_kernel="cuda", **kw)
+        want = cfg.n_layer * MOE_NANO_KW["chunk"] * st["dispatches"]
+        if pa.launches != want or not pa.launches:
+            raise AssertionError(f"nano MoE: K1 launches {pa.launches}, "
+                                 f"want {want}")
+        if not all(np_equal(g, r) for g, r in zip(got, ref)):
+            raise AssertionError(f"nano MoE f32 cf={cf} T={temp}: card "
+                                 f"streams differ from the CPU's")
+    log(f"nano MoE (4 experts, top-2) [{card}]: init_params card "
+        f"bit-equal to CPU; f32 K1 streams == CPU plain streams, "
+        f"{len(reqs)} requests in 12 slots, capacity factor 0.25 at T=0 "
+        f"and T=0.8, 1.25 at T=0")
+
+
+def moe_serve_phase(reqs, dense, card) -> None:
+    """GPT-2 small with 8 experts (bf16, the reference's draw for seed 0,
+    timed) serving the 12 requests through ``DecodeEngine(slots=16,
+    chunk=8, max_len=1024, page_size=16, attn_kernel="cuda")``: every
+    stream completes, K1 runs ``n_layer * chunk`` times per dispatch, the
+    streams pass the MoE bf16 gate against the gather engine, and both
+    injected K1 faults fail it; an int8 pool (the same gate) and
+    f32 (kernel vs gather within ``MAX_DIVERGED["f32"]``); an n-gram spec
+    engine; a paged→paged fp handoff equal to the colocated kernel
+    engine; TTFT/TPOT/tok/s beside the dense engine's (``dense``); a
+    profiled window."""
+    import dataclasses
+
+    import torch
+
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.models import gpt_decode as gd
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(gpt.CONFIGS["small"], n_experts=MOE_EXPERTS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = gpt.init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    log(f"init_params GPT-2 small MoE ({MOE_EXPERTS} experts, top-"
+        f"{cfg.expert_top_k}; the reference's draw for seed 0, bf16 "
+        f"storage) on the card [{card}]: {time.perf_counter() - t0:.3f} s "
+        f"for {sum(p.numel() for p in params.values())} weights")
+    serve(params, cfg, reqs[:2], device=dev, attn_kernel="gather")
+    with CallLog() as ref_log:
+        ref, *_ = serve(params, cfg, reqs, device=dev, attn_kernel="gather")
+    torch.cuda.reset_peak_memory_stats()
+    pa.launches = 0
+    with CallLog() as got_log:
+        toks, ttft, tpot, wall, st = serve(params, cfg, reqs, device=dev,
+                                           attn_kernel="cuda")
+    launches, peak = pa.launches, torch.cuda.max_memory_allocated()
+    check_streams("small MoE bf16", toks, reqs, cfg.vocab_size)
+    want = cfg.n_layer * 8 * st["dispatches"]
+    if st["completed"] != len(reqs) or launches != want or not launches:
+        raise AssertionError(f"MoE engine: completed {st['completed']}, "
+                             f"K1 launches {launches} (want {want})")
+    n = sum(map(len, toks))
+    d_toks, d_ttft, d_tpot, d_wall = dense
+    log(f"small MoE bf16 engine [{card}]: {n} tokens in {wall:.4f} s = "
+        f"{n / wall:.2f} tok/s (dense {sum(map(len, d_toks)) / d_wall:.2f});"
+        f" TTFT p50 {p50(ttft) * 1e3:.3f} ms (dense "
+        f"{p50(d_ttft) * 1e3:.3f}); TPOT p50 {p50(tpot) * 1e3:.3f} ms "
+        f"(dense {p50(d_tpot) * 1e3:.3f}); K1 launches {launches} = "
+        f"n_layer*chunk*{st['dispatches']} dispatches; peak memory "
+        f"{peak / 2**20:.1f} MiB")
+    ok, why = moe_gate(toks, ref, got_log, ref_log, params, cfg)
+    log(f"small MoE bf16: kernel vs gather: "
+        f"{len(parting_steps(toks, ref))}/{len(reqs)} streams part; {why}")
+    if not ok:
+        raise AssertionError("small MoE bf16: K1 is more than a rounding "
+                             "away from the gather version")
+    for fault in ("pos-1", "scale"):
+        k1 = faulty_k1(fault)
+        gd.paged_attention_cuda = k1
+        try:
+            with CallLog() as bad_log:
+                bad, *_ = serve(params, cfg, reqs, device=dev,
+                                attn_kernel="cuda")
+        finally:
+            gd.paged_attention_cuda = pa.paged_attention_cuda
+        ok, why = moe_gate(bad, ref, bad_log, ref_log, params, cfg, k1=k1)
+        log(f"small MoE bf16, K1 fault {fault!r} injected: "
+            f"{len(parting_steps(bad, ref))}/{len(reqs)} streams part; "
+            f"{why}; gate {'PASSED' if ok else 'failed'}")
+        if ok:
+            raise AssertionError(f"the MoE bf16 gate passed K1 with the "
+                                 f"{fault!r} fault")
+
+    reqs32 = [(p, 32) for p, _ in reqs]
+    with CallLog() as ref_log8:
+        ref8, *_ = serve(params, cfg, reqs32, device=dev,
+                         attn_kernel="gather", kv_dtype="int8")
+    pa.launches = 0
+    with CallLog() as got_log8:
+        toks8, _, tpot8, wall8, st8 = serve(params, cfg, reqs32, device=dev,
+                                            attn_kernel="cuda",
+                                            kv_dtype="int8")
+    launches8, want8 = pa.launches, cfg.n_layer * 8 * st8["dispatches"]
+    check_streams("small MoE int8", toks8, reqs32, cfg.vocab_size)
+    if st8["completed"] != len(reqs32) or launches8 != want8:
+        raise AssertionError(f"MoE int8: completed {st8['completed']}, K1 "
+                             f"launches {launches8} (want {want8})")
+    # A count of parted streams does not fit an MoE pool (one flip parts
+    # them all): the int8 pools are held by the same gate, the f32
+    # replay on an int8 pool too, so a code that a rounding moved across
+    # an int8 boundary counts in both paths' errors.
+    ok, why = moe_gate(toks8, ref8, got_log8, ref_log8, params, cfg)
+    log(f"small MoE int8: kernel vs gather: "
+        f"{len(parting_steps(toks8, ref8))}/{len(reqs32)} streams part; "
+        f"{why}")
+    if not ok:
+        raise AssertionError("small MoE int8: K1 is more than a rounding "
+                             "away from the gather version")
+    log(f"small MoE int8 engine [{card}]: "
+        f"{sum(map(len, toks8)) / wall8:.2f} tok/s; TPOT p50 "
+        f"{p50(tpot8) * 1e3:.3f} ms; K1 launches {launches8}")
+
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params32 = gpt.init_params(cfg32, seed=0, device=dev)
+    for kv in ("fp", "int8"):
+        ref32, *_ = serve(params32, cfg32, reqs32, device=dev,
+                          attn_kernel="gather", kv_dtype=kv)
+        pa.launches = 0
+        toks32, _, tpot32, wall32, st32 = serve(
+            params32, cfg32, reqs32, device=dev, attn_kernel="cuda",
+            kv_dtype=kv)
+        if pa.launches != cfg.n_layer * 8 * st32["dispatches"]:
+            raise AssertionError(f"MoE f32 {kv}: K1 launches {pa.launches}")
+        check_streams(f"small MoE f32 {kv}", toks32, reqs32, cfg.vocab_size)
+        compare(f"small MoE f32 {kv}", toks32, ref32, "f32")
+        log(f"small MoE f32 {kv} engine [{card}]: "
+            f"{sum(map(len, toks32)) / wall32:.2f} tok/s; TPOT p50 "
+            f"{p50(tpot32) * 1e3:.3f} ms")
+    del params32
+    torch.cuda.empty_cache()
+
+    spec, _, tpot_s, wall_s, sts = serve(params, cfg, reqs, device=dev,
+                                         attn_kernel="cuda",
+                                         spec_decode="ngram", draft_k=4)
+    check_streams("small MoE spec ngram", spec, reqs, cfg.vocab_size)
+    sp = sts["spec"]
+    if sts["completed"] != len(reqs) or not sp["rounds"]:
+        raise AssertionError(f"MoE spec engine: {sts}")
+    log(f"small MoE bf16 spec ngram [{card}]: acceptance "
+        f"{sp['acceptance_rate']:.4f}, {sp['rounds']} rounds; TPOT p50 "
+        f"{p50(tpot_s) * 1e3:.3f} ms; {sum(map(len, spec)) / wall_s:.2f} "
+        f"tok/s; {len(parting_steps(spec, toks))}/{len(reqs)} streams "
+        f"differ from the plain kernel engine's (verify routes 16 x 5 "
+        f"rows at once, decode 16)")
+
+    descs, _ = handoffs(params, cfg, reqs, device=dev, attn_kernel="cuda")
+    pa.launches = 0
+    hand, _, _, _, sth = serve(params, cfg, reqs, device=dev, descs=descs,
+                               role="decode", attn_kernel="cuda")
+    ho = sth["handoff"]
+    if ho["imported"] != len(reqs) or ho["import_fallbacks"] or \
+            pa.launches != cfg.n_layer * 8 * sth["dispatches"]:
+        raise AssertionError(f"MoE handoff: {ho}, K1 launches "
+                             f"{pa.launches}")
+    if not all(np_equal(a, b) for a, b in zip(hand, toks)):
+        raise AssertionError("MoE handoff: streams differ from the "
+                             "colocated kernel engine's")
+    log(f"small MoE bf16 handoff paged->paged fp [{card}]: {len(reqs)} "
+        f"streams == colocated kernel engine; K1 launches {pa.launches}")
+    profile_phase(params, cfg, [(p, 32) for p, _ in reqs[:6]], card,
+                  "moe profile")
+    del params
+    torch.cuda.empty_cache()
+
+
+def faulty_k1(fault: str):
+    """K1's wrapper with ``fault`` injected: ``"pos-1"``, every slot
+    attends one position short (misses its newest key); ``"scale"``, K1's
+    output times ``1 + 2**-5``."""
+    import torch
+
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    def wrapper(q, kc, vc, pt, pos, page_size, ks=None, vs=None):
+        if fault == "pos-1":
+            pos = torch.where(pos > 0, pos - 1, pos)
+        out = pa.paged_attention_cuda(q, kc, vc, pt, pos, page_size, ks, vs)
+        return out * (1 + 2 ** -5) if fault == "scale" else out
+    return wrapper
+
+
 def np_equal(a, b):
     return a.shape == b.shape and bool((a == b).all())
 
@@ -1652,6 +2200,11 @@ def main() -> int:
     del params, params32
     torch.cuda.empty_cache()
 
+    # ---- 6c. Mixture-of-Experts serving: nano card vs CPU, GPT-2 small
+    # with 8 experts through K1
+    moe_nano_phase(card)
+    moe_serve_phase(reqs, (toks, ttft, tpot, wall), card)
+
     # ---- 7. training: flash vs xla, nano f32 card vs CPU, GPT-2 small
     flash_vs_xla_phase(card)
     nano_train_phase()
@@ -1659,6 +2212,13 @@ def main() -> int:
     for rec in flash_records:
         rec["launches"] = counts[rec["name"]]
     records += flash_records
+
+    # ---- 7b. MoE training: flash vs xla at f32, nano card vs CPU, GPT-2
+    # small with 8 experts through K2/K3
+    flash_vs_xla_phase(card, dataclasses.replace(
+        gpt.CONFIGS["small"], n_experts=MOE_EXPERTS, dtype=torch.float32))
+    nano_train_phase(n_experts=NANO_MOE_EXPERTS)
+    train_phase(card, n_experts=MOE_EXPERTS)
 
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {

@@ -25,7 +25,12 @@ masked-softmax einsums. The training state is updated in place (the
 parameters and the optimizer's moments), where the reference returns a
 new pytree.
 
-Dense FFN only: MoE (``n_experts > 0``) belongs to a later slice.
+``n_experts > 0`` replaces every block's FFN by the Mixture-of-Experts
+FFN of :mod:`ray_tpu_torch.models.moe` (router, top-k gating with a
+static capacity, batched expert products), as the reference's
+``_block`` does; :func:`forward` sums the blocks' load-balance terms and
+:func:`loss_fn` adds ``moe_aux_coef`` times that sum. Expert parallelism
+(the reference's ``ep_axis``) is not ported: the port has no mesh.
 """
 from __future__ import annotations
 
@@ -53,6 +58,9 @@ Params = Dict[str, torch.Tensor]
 #: Per-layer weights, stacked along a leading ``[n_layer]`` axis.
 BLOCK_PARAMS = ("ln1_scale", "ln2_scale", "wq", "wk", "wv", "wo", "w1",
                 "w2")
+#: The same for an MoE model: ``router [L, d, E]``, ``w_up [L, E, d,
+#: f]`` and ``w_down [L, E, f, d]`` in place of ``w1``/``w2``.
+MOE_BLOCK_PARAMS = BLOCK_PARAMS[:6] + ("router", "w_up", "w_down")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,17 +75,21 @@ class GPTConfig:
     param_dtype: torch.dtype = torch.float32  # master params
     remat: Any = "dots"              # none|dots|full (bool accepted)
     attn_backend: str = "auto"       # auto | xla | flash
-    n_experts: int = 0               # >0 → MoE FFN (not in this port yet)
+    n_experts: int = 0               # >0 → MoE FFN in every block
+    expert_top_k: int = 2            # tokens routed to k experts
+    capacity_factor: float = 1.25    # per-expert slots = cf*k*T/E
+    moe_aux_coef: float = 0.01       # load-balance loss weight
     loss_chunk: int = 0              # seq chunk for cross-entropy (0=off):
     # only one chunk's f32 [B, chunk, vocab] logits are live at a time and
     # backward re-projects them (``gpt.py:55``); needed where the whole
     # logits tensor would not fit (the 1b preset).
 
     def __post_init__(self):
-        if self.n_experts > 0:
-            raise NotImplementedError(
-                "MoE configs (n_experts > 0) are not ported yet; the "
-                "torch port serves dense-FFN GPTs only")
+        if self.n_experts < 0 or (self.n_experts > 0 and not
+                                  1 <= self.expert_top_k <= self.n_experts):
+            raise ValueError(
+                f"n_experts={self.n_experts}, expert_top_k="
+                f"{self.expert_top_k}: need 1 <= top_k <= n_experts")
         if self.attn_backend in ("ring", "ulysses"):
             raise NotImplementedError(
                 f"attn_backend={self.attn_backend!r} (sequence-parallel "
@@ -136,7 +148,11 @@ def init_params(cfg: GPTConfig, seed: int = 0, device: DeviceLike = None,
     ``device``. ``dtype`` is the storage dtype (default
     ``cfg.param_dtype``); every draw is cast to it once, and storing in
     the compute dtype changes no result, since every use casts to it
-    first."""
+    first. An MoE config draws ``router``, ``w_up`` and ``w_down`` as
+    ``gpt.py:114-127`` does: from ``split(keys[6], 3)``, each expert's
+    key split per layer and then per expert, ``keys[7]`` unused; the
+    experts one layer at a time, so the draw's temporaries stay the
+    size of one layer's experts."""
     dev = resolve_device(device)
     dtype = dtype or cfg.param_dtype
     d, f, L = cfg.d_model, cfg.d_ff, cfg.n_layer
@@ -155,8 +171,17 @@ def init_params(cfg: GPTConfig, seed: int = 0, device: DeviceLike = None,
         # own key over the same counter, as one draw per layer does.
         return draw(prng.split(key, L), shape, scale)
 
+    def stack_e(key, shape, scale=None):
+        # [L, E] keys: split per layer, then per expert.
+        E = cfg.n_experts
+        kk = prng.split(prng.split(key, L), E)
+        out = torch.empty(L, E, *shape, dtype=dtype, device=dev)
+        for i in range(L):
+            out[i] = draw(kk[i], shape, scale)
+        return out
+
     resid = 1.0 / math.sqrt(2 * L * d)
-    return {
+    params = {
         "embed": draw(keys[0], (cfg.vocab_size, d), 0.02),
         "pos_embed": draw(keys[1], (cfg.max_seq, d), 0.01),
         "ln1_scale": torch.ones(L, d, dtype=dtype, device=dev),
@@ -165,21 +190,27 @@ def init_params(cfg: GPTConfig, seed: int = 0, device: DeviceLike = None,
         "wk": stack(keys[3], (d, d)),
         "wv": stack(keys[4], (d, d)),
         "wo": stack(keys[5], (d, d), resid),
-        "w1": stack(keys[6], (d, f)),
-        "w2": stack(keys[7], (f, d), resid),
-        "ln_f_scale": torch.ones(d, dtype=dtype, device=dev),
     }
+    if cfg.n_experts > 0:
+        ks = prng.split(keys[6], 3)
+        params["router"] = stack(ks[0], (d, cfg.n_experts), 0.02)
+        params["w_up"] = stack_e(ks[1], (d, f))
+        params["w_down"] = stack_e(ks[2], (f, d), resid)
+    else:
+        params["w1"] = stack(keys[6], (d, f))
+        params["w2"] = stack(keys[7], (f, d), resid)
+    params["ln_f_scale"] = torch.ones(d, dtype=dtype, device=dev)
+    return params
 
 
 def params_from_numpy(tree: Mapping, device: DeviceLike = None,
                       dtype: torch.dtype = torch.float32) -> Params:
     """The reference's params pytree (``ray_tpu.models.gpt.init_params``,
     leaves already converted to numpy by the caller) → the port's flat
-    dict of stacked tensors, ``[in, out]`` kernel layout kept."""
+    dict of stacked tensors, ``[in, out]`` kernel layout kept; an MoE
+    tree's ``router``/``w_up``/``w_down`` included."""
     dev = resolve_device(device)
     blk = tree["block"]
-    if "w1" not in blk:
-        raise NotImplementedError("MoE params are not ported yet")
 
     def t(x):
         return torch.from_numpy(np.array(x, np.float32)).to(
@@ -188,15 +219,22 @@ def params_from_numpy(tree: Mapping, device: DeviceLike = None,
     out = {"embed": t(tree["embed"]["kernel"]),
            "pos_embed": t(tree["pos_embed"]),
            "ln_f_scale": t(tree["ln_f_scale"])}
-    for name in BLOCK_PARAMS:
+    for name in block_names(blk):
         leaf = blk[name]
         out[name] = t(leaf["kernel"] if isinstance(leaf, Mapping) else leaf)
     return out
 
 
+def block_names(params: Mapping) -> Tuple[str, ...]:
+    """The per-layer weight names of ``params`` (or of a reference
+    ``block`` tree): :data:`MOE_BLOCK_PARAMS` if it has a router, else
+    :data:`BLOCK_PARAMS`."""
+    return MOE_BLOCK_PARAMS if "router" in params else BLOCK_PARAMS
+
+
 def layer_params(params: Params, i: int) -> Params:
     """Layer ``i``'s weights (views into the stacked tensors)."""
-    return {name: params[name][i] for name in BLOCK_PARAMS}
+    return {name: params[name][i] for name in block_names(params)}
 
 
 def _rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -268,8 +306,25 @@ def _attention(q, k, v, cfg: GPTConfig) -> torch.Tensor:
     return _attention_xla(q, k, v, cfg)
 
 
-def _block(x: torch.Tensor, p: Params, cfg: GPTConfig) -> torch.Tensor:
-    """One dense transformer block (``gpt.py:234``)."""
+def _ffn(h: torch.Tensor, p: Params, cfg: GPTConfig, aux: bool = True
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The block's FFN on the normed ``h`` → (y, load-balance term):
+    the MoE FFN when ``cfg.n_experts > 0`` (its term ``None`` with
+    ``aux=False``), else the dense GELU MLP (term ``None``)."""
+    if cfg.n_experts > 0:
+        from .moe import moe_ffn
+
+        return moe_ffn(h, p["router"], p["w_up"], p["w_down"],
+                       top_k=cfg.expert_top_k,
+                       capacity_factor=cfg.capacity_factor,
+                       dtype=cfg.dtype, aux=aux)
+    return _mm(_gelu(_mm(h, p["w1"], cfg.dtype)), p["w2"], cfg.dtype), None
+
+
+def _block(x: torch.Tensor, p: Params, cfg: GPTConfig
+           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One transformer block → (x, aux) (``gpt.py:234``): ``aux`` is the
+    MoE load-balance term, ``None`` for a dense FFN (the reference's 0)."""
     B, S, d = x.shape
     H, hd = cfg.n_head, cfg.head_dim
     h = _rmsnorm(x, p["ln1_scale"])
@@ -278,9 +333,8 @@ def _block(x: torch.Tensor, p: Params, cfg: GPTConfig) -> torch.Tensor:
     v = _mm(h, p["wv"], cfg.dtype).reshape(B, S, H, hd)
     att = _attention(q, k, v, cfg).reshape(B, S, d)
     x = x + _mm(att, p["wo"], cfg.dtype)
-    h = _rmsnorm(x, p["ln2_scale"])
-    h = _gelu(_mm(h, p["w1"], cfg.dtype))
-    return x + _mm(h, p["w2"], cfg.dtype)
+    y, aux = _ffn(_rmsnorm(x, p["ln2_scale"]), p, cfg)
+    return x + y, aux
 
 
 # Matrix products: what ``jax.checkpoint_policies.checkpoint_dots`` keeps.
@@ -311,22 +365,30 @@ def _remat(fn: Callable, policy: str, *args):
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: GPTConfig, *,
-            final_hidden: bool = False) -> torch.Tensor:
+            return_aux: bool = False, final_hidden: bool = False):
     """tokens [B, S] int → logits [B, S, vocab] float32
-    (``gpt.py:344``). ``final_hidden`` skips the vocab projection and
-    returns the post-norm hidden states (the chunked loss projects per
-    chunk itself)."""
+    (``gpt.py:344``). ``return_aux`` also returns ``{"moe_aux": the
+    layers' load-balance terms summed}`` (0 for a dense model).
+    ``final_hidden`` skips the vocab projection and returns the
+    post-norm hidden states (the chunked loss projects per chunk
+    itself)."""
     tokens = torch.as_tensor(tokens, device=params["embed"].device).long()
     S = tokens.shape[1]
     x = params["embed"].to(cfg.dtype)[tokens]
     x = x + params["pos_embed"][:S].to(cfg.dtype)[None]
     policy = _remat_policy(cfg.remat)
+    auxs = []
     for i in range(cfg.n_layer):
-        x = _remat(_block, policy, x, layer_params(params, i), cfg)
+        x, aux = _remat(_block, policy, x, layer_params(params, i), cfg)
+        if aux is not None:
+            auxs.append(aux)
     x = _rmsnorm(x, params["ln_f_scale"])
-    if final_hidden:
-        return x
-    return _project_vocab(x, params["embed"], cfg)
+    out = x if final_hidden else _project_vocab(x, params["embed"], cfg)
+    if not return_aux:
+        return out
+    aux = torch.stack(auxs).sum() if auxs else torch.zeros(
+        (), dtype=torch.float32, device=x.device)
+    return out, {"moe_aux": aux}
 
 
 def _ce_from_logits(logits: torch.Tensor, targets: torch.Tensor
@@ -365,7 +427,10 @@ def loss_fn(params: Params, batch: Mapping, cfg: GPTConfig
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy (``gpt.py:476``). batch: ``tokens``
     [B, S+1], or ``tokens`` and ``targets`` [B, S]. Returns (loss,
-    {"loss", "perplexity"}), the metrics detached."""
+    {"loss", "perplexity"}), the metrics detached. An MoE model adds
+    ``moe_aux_coef`` times the load-balance term to the loss and reports
+    the term as ``metrics["moe_aux"]`` (``gpt.py:492-494``); ``loss``
+    and ``perplexity`` stay the cross-entropy's."""
     dev = params["embed"].device
     if "targets" in batch:
         tokens, targets = batch["tokens"], batch["targets"]
@@ -375,12 +440,18 @@ def loss_fn(params: Params, batch: Mapping, cfg: GPTConfig
         full = torch.as_tensor(batch["tokens"], device=dev)
         tokens, targets = full[:, :-1], full[:, 1:]
     if cfg.loss_chunk:
-        x = forward(params, tokens, cfg, final_hidden=True)
+        x, aux = forward(params, tokens, cfg, return_aux=True,
+                         final_hidden=True)
         loss = _chunked_ce(x, params["embed"], targets, cfg)
     else:
-        loss = _ce_from_logits(forward(params, tokens, cfg), targets)
+        logits, aux = forward(params, tokens, cfg, return_aux=True)
+        loss = _ce_from_logits(logits, targets)
     done = loss.detach()
-    return loss, {"loss": done, "perplexity": torch.exp(done)}
+    metrics = {"loss": done, "perplexity": torch.exp(done)}
+    if cfg.n_experts > 0:
+        loss = loss + cfg.moe_aux_coef * aux["moe_aux"]
+        metrics["moe_aux"] = aux["moe_aux"].detach()
+    return loss, metrics
 
 
 #: ``optax.adamw(3e-4, weight_decay=0.01)`` as the reference's
@@ -405,7 +476,8 @@ def make_train_step(cfg: GPTConfig, optimizer: Optional[Callable[
       ``params``, e.g. :func:`params_from_numpy`'s) and the optimizer
       ``optimizer(params)`` builds (default ``torch.optim.AdamW`` with
       :data:`ADAMW_DEFAULTS`).
-    - ``step(state, batch)`` → ``(state, {"loss", "perplexity"})``: one
+    - ``step(state, batch)`` → ``(state, {"loss", "perplexity"})``
+      (and ``"moe_aux"`` for an MoE model, as :func:`loss_fn`): one
       forward/backward/update; parameters and optimizer state are
       updated in place. The forward casts the master parameters to
       ``cfg.dtype``.

@@ -70,14 +70,16 @@ import numpy as np
 import torch
 
 from .._private import prng
-from .._private.device import DeviceLike, resolve_device
+from .._private.device import (DeviceLike, resolve_device,
+                               set_matmul_precision)
 from ..ops.paged_attention import (deq_page as _deq_page,
                                    paged_attention_cuda,
                                    paged_attention_gather
                                    as _paged_attention_gather,
                                    softmax_scale)
-from .gpt import (GPTConfig, Params, _gelu, _mm, _project_vocab, _rmsnorm,
-                  layer_params)
+from .gpt import GPTConfig, Params
+from .gpt import _ffn as _block_ffn
+from .gpt import _mm, _project_vocab, _rmsnorm, layer_params
 
 Cache = Dict[str, torch.Tensor]
 
@@ -122,9 +124,12 @@ def _block_kv(x, p, cfg: GPTConfig):
 
 
 def _ffn(x, p, cfg: GPTConfig):
-    h = _rmsnorm(x, p["ln2_scale"])
-    h = _gelu(_mm(h, p["w1"], cfg.dtype))
-    return x + _mm(h, p["w2"], cfg.dtype)
+    """The block's FFN with its residual (``gpt_decode.py:317``): dense,
+    or the MoE FFN with its load-balance term discarded. Every row of
+    ``x`` competes for the experts' capacity, inactive slots' and pad
+    rows included, as in the reference."""
+    y, _ = _block_ffn(_rmsnorm(x, p["ln2_scale"]), p, cfg, aux=False)
+    return x + y
 
 
 def _tokens(tokens, device: torch.device) -> torch.Tensor:
@@ -290,6 +295,7 @@ def decode_step(params: Params, cache: Cache, token,
 
 def _on_device(params: Params, device: DeviceLike) -> Params:
     dev = resolve_device(device)
+    set_matmul_precision(dev)
     return {k: v.to(dev) for k, v in params.items()}
 
 

@@ -1,0 +1,146 @@
+"""Mixture-of-Experts FFN: the port of ``ray_tpu/models/moe.py``.
+
+A router scores each token per expert; each token goes to its top-k
+experts, renormalised over those k; every expert has a static capacity
+of C slots, handed out first come, first served across the flattened
+token dimension (choice 0 of every token first, then choice 1, ...), and
+a token past capacity is dropped from that expert (its residual carries
+it). The load-balance term is Switch's ``E * sum_e f_e * p_e`` over the
+top-1 assignment.
+
+The reference writes dispatch and combine as dense one-hot ``[T, E, C]``
+tensors and four einsums (``moe.py:37-112``). :func:`top_k_gating` keeps
+that interface. :func:`moe_ffn` routes by index instead, the "sort-based
+scatter variant" the reference's docstring names: each (token, choice)
+pair's expert, slot, keep flag and gate come from :func:`route` once
+(which :func:`top_k_gating` also uses, so the two cannot drift); the
+kept tokens are gathered into ``[E, C, d]``, the experts run as two
+batched products, and each token gathers its k outputs back. The values
+are the dense form's: a one-hot dispatch copies rows exactly, and the
+combine sums k products that are exact in f32 (two terms sum in either
+order alike). Autograd reaches the same gradients. The dense form cannot
+run at the training shape (T = 32768, C = 10240: one f32 ``[T, E, C]``
+tensor is 10.7 GB per layer), and it spreads a non-finite row to every
+token through ``0 * NaN``; index routing does neither.
+
+Casts follow the reference: router logits are an f32 product of f32
+operands; the gates are rounded to the compute dtype before the combine;
+each expert product accumulates in f32 and is cast once; GELU is the
+tanh form.
+
+``ep_axis`` (expert parallelism over a mesh) is not ported: the port has
+no mesh.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .gpt import _gelu
+
+
+def capacity(tokens: int, n_experts: int, top_k: int,
+             capacity_factor: float) -> int:
+    """Static per-expert slot count, padded to a multiple of 8
+    (``moe.py:30``)."""
+    c = int(math.ceil(capacity_factor * top_k * tokens / n_experts))
+    return max(8, ((c + 7) // 8) * 8)
+
+
+class Routes(NamedTuple):
+    """Where each (choice j, token t) pair goes, ``[k, T]`` each, choice
+    major (the order capacity is handed out in)."""
+
+    expert: torch.Tensor    # int64 expert index
+    slot: torch.Tensor      # int64 position in that expert's buffer
+    keep: torch.Tensor      # bool: slot < capacity
+    gate: torch.Tensor      # renormalised top-k probability, probs dtype
+
+
+def route(probs: torch.Tensor, top_k: int, cap: int) -> Routes:
+    """``probs [T, E]`` → :class:`Routes`. Top-k by a stable descending
+    sort, so equal probabilities take the lower expert index first, as
+    ``lax.top_k`` does (``torch.topk`` promises no order among ties).
+    Slots are one cumulative count over the choice-major concatenation
+    ``[k * T]``, which is the reference's loop over j with its running
+    ``counts`` offset (``moe.py:52-62``). The count runs along the last
+    axis of an ``[E, k * T]`` one-hot: a scan down the long axis of a
+    ``[k * T, E]`` tensor runs E lanes serially on the card (12 ms a
+    layer at T = 32768 on an H100 80GB HBM3 at 700 W)."""
+    T, E = probs.shape
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates = vals[:, :top_k]
+    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    expert = idx[:, :top_k].t().reshape(-1)                   # [k*T]
+    seen = F.one_hot(expert, E).t().cumsum(1)                 # [E, k*T]
+    slot = seen.gather(0, expert[None])[0] - 1
+    return Routes(expert.view(top_k, T), slot.view(top_k, T),
+                  (slot < cap).view(top_k, T), gates.t())
+
+
+def balance_loss(probs: torch.Tensor, routes: Routes) -> torch.Tensor:
+    """Switch's load-balance term ``E * sum_e f_e * p_e``: ``f_e`` the
+    share of tokens whose top-1 expert is e, ``p_e`` the mean router
+    probability of e (``moe.py:64-68``)."""
+    E = probs.shape[-1]
+    frac = F.one_hot(routes.expert[0], E).to(probs.dtype).mean(0)
+    return E * (frac * probs.mean(0)).sum()
+
+
+def top_k_gating(probs: torch.Tensor, top_k: int, cap: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """probs ``[T, E]`` → (dispatch ``[T, E, C]``, combine ``[T, E, C]``,
+    aux scalar), the reference's dense one-hot form (``moe.py:37``);
+    dropped pairs have no entry. Differentiable in ``probs`` as the
+    reference is (through the gates and the aux term)."""
+    T, E = probs.shape
+    r = route(probs, top_k, cap)
+    tok = torch.arange(T, device=probs.device).expand(top_k, T)
+    at = (tok[r.keep], r.expert[r.keep], r.slot[r.keep])
+    zeros = probs.new_zeros(T, E, cap)
+    dispatch = zeros.index_put(at, probs.new_ones(()).expand(len(at[0])))
+    combine = zeros.index_put(at, r.gate[r.keep])
+    return dispatch, combine, balance_loss(probs, r)
+
+
+def moe_ffn(x: torch.Tensor, router_kernel: torch.Tensor,
+            w_up: torch.Tensor, w_down: torch.Tensor, *, top_k: int,
+            capacity_factor: float, dtype: torch.dtype, aux: bool = True
+            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """x ``[B, S, d]`` → (y ``[B, S, d]`` in ``dtype``, aux f32 scalar)
+    (``moe.py:72``), routed by index. ``router_kernel [d, E]``, ``w_up
+    [E, d, f]``, ``w_down [E, f, d]``. Capacity counts all ``B * S``
+    rows, so every row of the batch competes for it. ``aux=False`` skips
+    the load-balance term (the decode paths discard it) and returns
+    ``None`` in its place."""
+    B, S, d = x.shape
+    E = router_kernel.shape[-1]
+    T = B * S
+    xt = x.reshape(T, d)
+    probs = torch.softmax(torch.matmul(xt.float(), router_kernel.float()),
+                          dim=-1)
+    cap = capacity(T, E, top_k, capacity_factor)
+    r = route(probs, top_k, cap)
+    # Buffer slot e * cap + c of each pair; a dropped pair points at the
+    # zero row past the last slot. Both gathers are ``index_select``,
+    # whose backward adds with atomics: an empty slot's row and a dropped
+    # pair's share one index, and the sorted accumulation of plain
+    # indexing runs such a repeated index serially (0.56 s of a training
+    # step at T = 32768 on an H100 80GB HBM3 at 700 W). A real row takes
+    # at most k adds, which sum alike in any order for k = 2.
+    flat = torch.where(r.keep, r.expert * cap + r.slot, E * cap)
+    tok = torch.arange(T, device=x.device).expand(top_k, T)
+    src = torch.full((E * cap + 1,), T, dtype=torch.long, device=x.device)
+    src[flat] = tok                     # row T of xz is zero
+    xz = torch.cat([xt.to(dtype), xt.new_zeros(1, d, dtype=dtype)])
+    xe = xz.index_select(0, src[:-1]).view(E, cap, d)
+    h = _gelu(torch.matmul(xe, w_up.to(dtype)).to(dtype))
+    ye = torch.matmul(h, w_down.to(dtype)).to(dtype).view(E * cap, d)
+    yz = torch.cat([ye, ye.new_zeros(1, d)])
+    picked = yz.index_select(0, flat.view(-1)).view(top_k, T, d)
+    y = (r.gate.to(dtype).float()[..., None] * picked.float()).sum(0)
+    return (y.to(dtype).view(B, S, d),
+            balance_loss(probs, r) if aux else None)

@@ -1631,8 +1631,13 @@ class DecodeEngine:
             st.pos += na + 1                 # mirrors the device pos
             n, j, running = self._deliver(i, st, com_np[i], na + 1)
             emitted += n
+            if j:
+                # The last delivered token, kept also when the lane just
+                # finished (``engine.py:2446``): a freed slot's row still
+                # runs in the next dispatch, and under MoE it competes
+                # for the experts' capacity.
+                self._token[i] = com_np[i, j - 1]
             if running:
-                self._token[i] = com_np[i, j - 1]   # last delivered
                 self._drafter.observe(i, com_np[i, :j], na)
         if emitted:
             self._count(tokens=emitted)

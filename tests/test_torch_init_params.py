@@ -185,6 +185,36 @@ def test_tied_drafter_params_equal_reference(seed):
     assert_bit_equal(tdp, port_tree(jdp))
 
 
+@pytest.mark.parametrize("seed", SEEDS)
+def test_init_params_moe_bit_equal(seed):
+    """An MoE config (``gpt.py:114-127``): ``keys[6]`` split in three,
+    ``router`` from the first, ``w_up``/``w_down`` split per layer and
+    then per expert (the port draws one layer at a time), ``w_down``
+    scaled like ``w2``, ``keys[7]`` unused; every leaf bit-equal."""
+    kw = dict(n_experts=4, expert_top_k=2)
+    want = port_tree(jgpt.init_params(jax.random.PRNGKey(seed),
+                                      dataclasses.replace(NANO, **kw)))
+    got = tgpt.init_params(dataclasses.replace(TNANO, **kw), seed,
+                           device="cpu")
+    assert {"router", "w_up", "w_down"} <= set(got) and "w1" not in got
+    assert_bit_equal(got, want)
+
+
+def test_tied_drafter_params_moe_equal_reference():
+    """An MoE target's drafter is a one-layer MoE drawn by the port's
+    ``init_params``: bit-equal to the reference's, embedding shared."""
+    kw = dict(n_experts=8, expert_top_k=2, n_layer=3)
+    jcfg, tcfg = (dataclasses.replace(NANO, **kw),
+                  dataclasses.replace(TNANO, **kw))
+    jdp, jdcfg = jdraft.tied_drafter_params(
+        jgpt.init_params(jax.random.PRNGKey(4), jcfg), jcfg, seed=1)
+    tp = tgpt.init_params(tcfg, 4, device="cpu")
+    tdp, tdcfg = tdraft.tied_drafter_params(tp, tcfg, seed=1)
+    assert tdcfg.n_layer == 1 and tdcfg.n_experts == 8
+    assert tdp["embed"] is tp["embed"] and tdp["w_up"].shape[:2] == (1, 8)
+    assert_bit_equal(tdp, port_tree(jdp))
+
+
 # ------------------------------------------------------- end to end
 J32 = dataclasses.replace(NANO, dtype=jnp.float32)
 T32 = dataclasses.replace(TNANO, dtype=torch.float32)

@@ -7,8 +7,9 @@ PRNG and the drafters, which reimplement JAX's and copy the reference's,
 included) and of ``chip_smoke.py``, and by serving nano requests
 (greedy, seeded temperature > 0, and speculative with the n-gram
 drafter), handing one request off from a prefill engine to a decode
-engine, and taking a nano train step (flash attention, ``dots`` remat)
-in a fresh interpreter where ``jax`` and ``ml_dtypes`` are poisoned in
+engine, taking a nano train step (flash attention, ``dots`` remat), and
+serving one request and taking one train step with a nano
+Mixture-of-Experts model, in a fresh interpreter where ``jax`` and ``ml_dtypes`` are poisoned in
 ``sys.modules`` and an import hook refuses them and ``ray_tpu`` and
 ``ray_tpu.*`` (but not ``ray_tpu_torch``). A subprocess, because this
 suite's conftest imports JAX into the test process.
@@ -123,6 +124,21 @@ init, step = gpt.make_train_step(tcfg, device="cpu")
 state, metrics = step(init(seed=0), {"tokens": np.arange(
     2 * 17, dtype=np.int64).reshape(2, 17) % cfg.vocab_size})
 assert state["step"] == 1 and bool(torch.isfinite(metrics["loss"]))
+# Mixture-of-Experts: one served request and one train step.
+mcfg = dataclasses.replace(cfg, n_experts=4)
+mparams = gpt.init_params(mcfg, seed=0, device="cpu")
+eng = DecodeEngine(mparams, mcfg, slots=2, chunk=4, max_len=64,
+                   prompt_buckets=(8, 16), page_size=8, device="cpu")
+try:
+    out = np.concatenate(list(eng.stream(np.arange(7, dtype=np.int32), 6)))
+finally:
+    eng.shutdown()
+assert out.shape == (6,), out
+init, step = gpt.make_train_step(dataclasses.replace(tcfg, n_experts=4),
+                                 device="cpu")
+state, metrics = step(init(seed=0), {"tokens": np.arange(
+    2 * 17, dtype=np.int64).reshape(2, 17) % cfg.vocab_size})
+assert float(metrics["moe_aux"]) > 0, metrics
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in BLOCKED
                 and sys.modules[m] is not None)
