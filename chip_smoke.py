@@ -71,6 +71,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
    stream equal to the uninterrupted one, ``supervise`` False after a
    second death, and ``drain`` of a busy engine (every stream equal to
    the colocated kernel engine's);
+   then tensor-parallel decode: ``DecodeEngine(tp=2)`` on a gloo group
+   of two ranks on this card (this process and a follower process),
+   K1 over each rank's 6 heads held against its plain version (bf16
+   and int8 pools) and launched ``n_layer * chunk`` times a dispatch on
+   both ranks, 24 all-reduces a decode step, the 12 requests against
+   the tp=1 K1 engines (bf16 near-ties, int8 and f32 budgets; first
+   tokens may part at a near-tie too), a tp=2 → tp=1 f32 handoff whose
+   every stream equals the colocated tp=1 engine's, TTFT/TPOT and one
+   all-reduce's host ms (two
+   ranks on one card: no figure for tensor parallelism across cards);
    then Mixture-of-Experts serving: nano with 4 experts (``init_params``
    on the card bit-equal to the CPU's; f32 streams through K1 equal to
    the CPU's on the CPU tests' drop-forcing pool, 14 requests for 12
@@ -321,31 +331,21 @@ def max_err(fn, inp) -> float:
     return err
 
 
-def kernel_phase(kv: str, card: str) -> dict:
-    """K1 vs its plain version, then timings, at GPT-2-small decode shapes
-    (``K1_SHAPES["small"]``); then held against the
-    plain version and timed at the 1b skewed shape (on a log line; the
-    record stays at the serving shape). Six layers' pools are cycled so
-    each timed launch reads pages no earlier launch left in the 50 MB
-    L2, as in the decode step."""
+def k1_record(inp, name: str, label: str, card: str) -> dict:
+    """K1 held against its plain version on every layer's pools of
+    ``inp`` (fatal beyond ``KERNEL_TOL``) and timed beside it, SDPA over
+    pre-gathered K/V (fp pools) and the card's bound: the kernels line's
+    record, its launches still 0."""
     import torch
     import torch.nn.functional as F
 
     from ray_tpu_torch.ops import paged_attention as pa
 
-    inp = decode_inputs("small", kv, seed=1 if kv == "fp" else 2)
-    plan = pa._launch_plan(inp.max_pages, inp.ps, inp.hd,
-                           inp.kc.element_size())
-    clusters = pa._prepare(pa._load(), 1, kv == "int8", inp.hd, inp.ps,
-                           inp.max_pages, plan, 0)
-    log(f"K1 {kv} plan: {plan} -> grid ({plan.cluster}, {inp.H}, {inp.B}),"
-        f" {inp.H * inp.B} clusters of {plan.cluster} blocks x 128 threads;"
-        f" the card holds {clusters} clusters at once")
     err = max_err(pa.paged_attention_cuda, inp)
-    log(f"K1 {kv}: kernel vs plain max_abs_err={err:.6g} "
+    log(f"K1 {label}: kernel vs plain max_abs_err={err:.6g} "
         f"(tolerance {KERNEL_TOL})")
     if not err <= KERNEL_TOL:
-        raise AssertionError(f"K1 {kv}: kernel disagrees with plain "
+        raise AssertionError(f"K1 {label}: kernel disagrees with plain "
                              f"version: {err} > {KERNEL_TOL}")
 
     # Device time per call (the profiler's): a launch of K1 is shorter
@@ -356,7 +356,7 @@ def kernel_phase(kv: str, card: str) -> dict:
     call_ms = cuda_ms(lambda i: pa.paged_attention_cuda(*args(i)), 240)
     plain_ms = device_ms(lambda i: pa.paged_attention_gather(*args(i)), 30)
     library_ms = None
-    if kv == "fp":
+    if inp.kv == "fp":
         # Pre-gathered contiguous K/V [B, H, V, hd] per layer, masked to
         # <= pos: what a dense attention library call would be handed.
         B, H, hd, V = inp.B, inp.H, inp.hd, inp.max_pages * inp.ps
@@ -373,16 +373,40 @@ def kernel_phase(kv: str, card: str) -> dict:
             240)
         del kd, vd
     work = k1_work(inp)
-    rec = {"name": f"paged_attention_{'int8' if kv == 'int8' else 'bf16'}",
-           "route": "cuda", "source": SOURCE, "replaces": REPLACES,
-           "launches": 0, "max_abs_err": err, "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": work["bound_ms"],
+    rec = {"name": name, "route": "cuda", "source": SOURCE,
+           "replaces": REPLACES, "launches": 0, "max_abs_err": err,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": work["bound_ms"],
            "bound_by": work["bound_by"], "library_ms": library_ms}
-    log(f"K1 {kv} timing [{card}]: kernel_ms={ms:.6g} (device; "
-        f"{call_ms:.6g} a call back to back, host included) plain_ms="
-        f"{plain_ms:.6g} library_ms={library_ms} bound_ms="
-        f"{rec['bound_ms']:.6g} ({rec['bound_by']}: {work['nbytes']} B, "
-        f"{work['flops']} flop) roofline_share={rec['bound_ms'] / ms:.3f}")
+    log(f"K1 {label} timing [{card}] (B={inp.B} H={inp.H} hd={inp.hd}): "
+        f"kernel_ms={ms:.6g} (device; {call_ms:.6g} a call back to back, "
+        f"host included) plain_ms={plain_ms:.6g} library_ms={library_ms} "
+        f"bound_ms={rec['bound_ms']:.6g} ({rec['bound_by']}: "
+        f"{work['nbytes']} B, {work['flops']} flop) roofline_share="
+        f"{rec['bound_ms'] / ms:.3f}")
+    return rec
+
+
+def kernel_phase(kv: str, card: str) -> dict:
+    """K1 vs its plain version, then timings, at GPT-2-small decode shapes
+    (``K1_SHAPES["small"]``, :func:`k1_record`); then held against the
+    plain version and timed at the 1b skewed shape (on a log line; the
+    record stays at the serving shape). Six layers' pools are cycled so
+    each timed launch reads pages no earlier launch left in the 50 MB
+    L2, as in the decode step."""
+    import torch
+
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    inp = decode_inputs("small", kv, seed=1 if kv == "fp" else 2)
+    plan = pa._launch_plan(inp.max_pages, inp.ps, inp.hd,
+                           inp.kc.element_size())
+    clusters = pa._prepare(pa._load(), 1, kv == "int8", inp.hd, inp.ps,
+                           inp.max_pages, plan, 0)
+    log(f"K1 {kv} plan: {plan} -> grid ({plan.cluster}, {inp.H}, {inp.B}),"
+        f" {inp.H * inp.B} clusters of {plan.cluster} blocks x 128 threads;"
+        f" the card holds {clusters} clusters at once")
+    rec = k1_record(inp, f"paged_attention_{'int8' if kv == 'int8' else 'bf16'}",
+                    kv, card)
     del inp
     torch.cuda.empty_cache()
 
@@ -1014,11 +1038,13 @@ def tie_ratios(model, got, ref, parted) -> dict:
 
 
 def compare(name, got, ref, precision, what="kernel vs gather",
-            model=None):
+            model=None, firsts_equal=True):
     """Hold ``got`` against ``ref`` stream for stream: every first token
     equal, and at bf16 every parting a near-tie of ``model`` = (params,
     cfg, reqs) (``tie_ratios`` at most 1), else at most
-    ``MAX_DIVERGED[precision]`` streams parted."""
+    ``MAX_DIVERGED[precision]`` streams parted. ``firsts_equal=False``
+    where the two prefills differ too (tensor-parallel sums): a parting
+    at the first token is then held like any other."""
     firsts = all(g[0] == r[0] for g, r in zip(got, ref))
     where = parting_steps(got, ref)
     if precision == "bf16":
@@ -1029,7 +1055,8 @@ def compare(name, got, ref, precision, what="kernel vs gather",
             f"first divergence at {where}, distance from a tie {shown} "
             f"(largest {worst:.4f}, bound 1), first tokens all equal: "
             f"{firsts}")
-        if not firsts or not all(r <= 1 for r in ratios.values()):
+        if (firsts_equal and not firsts) or \
+                not all(r <= 1 for r in ratios.values()):
             raise AssertionError(f"{name}: {what}: a stream parts at more "
                                  f"than a bf16 near-tie")
         return
@@ -1039,7 +1066,7 @@ def compare(name, got, ref, precision, what="kernel vs gather",
     log(f"{name}: {what} streams: {len(where)}/{len(got)} "
         f"diverge (budget {budget}), first divergence at {where}, first "
         f"tokens all equal: {firsts}")
-    if not firsts or len(where) > budget:
+    if (firsts_equal and not firsts) or len(where) > budget:
         raise AssertionError(f"{name}: {what} outside the divergence "
                              f"budget")
 
@@ -2023,6 +2050,143 @@ def faulty_k1(fault: str):
     return wrapper
 
 
+TP = 2
+
+
+def tp_phase(params, cfg, reqs, greedy, reqs32, greedy8, f32_args,
+             card) -> dict:
+    """Tensor-parallel decode at GPT-2-small width: ``DecodeEngine(tp=2)``
+    over a group of two ranks on this one card, gloo (NCCL refuses two
+    ranks on one GPU): this process is rank 0, a follower process rank
+    1, each holding half the heads (K1 at H=6) and half the FFN, their
+    row-parallel partials summed by all-reduce. Against the tp=1 K1
+    engines of the same weights: bf16 (the 12 requests) parts at bf16
+    near-ties only, int8 (32 new tokens) within its count budget, f32 fp
+    within ``MAX_DIVERGED["f32"]``; first tokens may part too, since the
+    prefills sum in another order. A tp=2 prefill-role engine hands the
+    requests off to a tp=1 decode-role K1 engine (f32), whose streams
+    must equal the colocated tp=1 engine's, every one. K1 launches
+    ``n_layer * chunk`` times a dispatch on each rank, bf16 and int8
+    pools alike (counted on both ranks); 2 * n_layer all-reduces a step
+    on rank 0 (counted). K1 at the rank's shape (H=6), bf16 and int8
+    pools, against its plain version. TTFT/TPOT and one all-reduce's
+    host ms are printed: two processes sharing ONE card, every
+    collective staged through host memory by gloo, not a figure for
+    tensor parallelism across cards. Returns K1's two H=6 records."""
+    import torch
+
+    from ray_tpu_torch._private import tp
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    group = tp.decode_group(TP, devices=("cuda:0",) * TP, backend="gloo")
+    try:
+        log(f"tp: {TP} ranks on {group.devices} ({group.backend}) started "
+            f"in {time.perf_counter() - t0:.3f} s (follower pid "
+            f"{group.pids})")
+        recs = {}
+        for kv, seed in (("fp", 7), ("int8", 8)):
+            inp = decode_inputs(dict(K1_SHAPES["small"],
+                                     H=cfg.n_head // TP), kv, seed=seed)
+            dt = "int8" if kv == "int8" else "bf16"
+            recs[kv] = k1_record(inp, f"paged_attention_{dt}_h{inp.H}",
+                                 f"{dt} H={inp.H} (a tp={TP} rank's heads)",
+                                 card)
+            del inp
+        shape = (16, cfg.d_model)
+        ar_ms = group.all_reduce_ms(shape, 200)
+
+        counted = [0]
+        plain_all_reduce = group.all_reduce
+
+        def all_reduce(t):
+            counted[0] += 1
+            return plain_all_reduce(t)
+
+        group.all_reduce = all_reduce
+        try:
+            pa.launches = 0
+            group.probe(reset=True)
+            toks, ttft, tpot, wall, stats = serve(
+                params, cfg, reqs, device=dev, attn_kernel="cuda", tp=TP)
+            launches = [pa.launches, group.probe()[0]["k1_launches"]]
+            n_ar = counted[0]
+        finally:
+            del group.all_reduce
+        check_streams("tp2 bf16", toks, reqs, cfg.vocab_size)
+        steps = 8 * stats["dispatches"]
+        want = cfg.n_layer * steps
+        want_ar = 2 * cfg.n_layer * (steps + stats["prefills"])
+        log(f"tp2 bf16: K1 launches per rank {launches} (want n_layer*"
+            f"chunk*dispatches={want}); all-reduces on rank 0 {n_ar} "
+            f"(want 2*n_layer*(steps {steps} + prefills "
+            f"{stats['prefills']})={want_ar}: {2 * cfg.n_layer} a decode "
+            f"step, and one token broadcast)")
+        if stats["completed"] != len(reqs) or launches != [want, want] \
+                or want == 0 or n_ar != want_ar:
+            raise AssertionError(f"tp2 bf16: completed {stats['completed']}"
+                                 f", launches {launches}, all-reduces "
+                                 f"{n_ar}")
+        compare("tp2 bf16", toks, greedy, "bf16", what="tp=2 vs tp=1",
+                model=(params, cfg, reqs), firsts_equal=False)
+        recs["fp"]["launches"] = sum(launches)
+        n_tok = sum(len(t) for t in toks)
+        log(f"tp2 bf16 engine [{card}]: {len(reqs)} requests, {n_tok} "
+            f"tokens in {wall:.4f} s = {n_tok / wall:.2f} tok/s; TTFT p50 "
+            f"{p50(ttft) * 1e3:.3f} ms; TPOT p50 {p50(tpot) * 1e3:.3f} ms; "
+            f"one f32 all-reduce of {list(shape)} {ar_ms:.4f} ms (host, "
+            f"gloo); {2 * cfg.n_layer} all-reduces a decode step. Two "
+            f"ranks sharing ONE card through gloo's host staging: not a "
+            f"speed figure for tensor parallelism across cards")
+
+        pa.launches = 0
+        group.probe(reset=True)
+        toks8, _, tpot8, _, stats8 = serve(
+            params, cfg, reqs32, device=dev, attn_kernel="cuda",
+            kv_dtype="int8", tp=TP)
+        launches8 = [pa.launches, group.probe()[0]["k1_launches"]]
+        check_streams("tp2 int8", toks8, reqs32, cfg.vocab_size)
+        want8 = cfg.n_layer * 8 * stats8["dispatches"]
+        log(f"tp2 int8: K1 launches per rank {launches8} (want {want8})")
+        if stats8["completed"] != len(reqs32) or \
+                launches8 != [want8, want8] or want8 == 0:
+            raise AssertionError(f"tp2 int8: {stats8}, {launches8}")
+        recs["int8"]["launches"] = sum(launches8)
+        compare("tp2 int8", toks8, greedy8, "int8", what="tp=2 vs tp=1",
+                firsts_equal=False)
+        log(f"tp2 int8 engine [{card}]: TPOT p50 {p50(tpot8) * 1e3:.3f} ms")
+
+        params32, cfg32, reqs32_, plain32 = f32_args
+        toks32, _, tpot32, _, _ = serve(params32, cfg32, reqs32_,
+                                        device=dev, attn_kernel="cuda",
+                                        tp=TP)
+        check_streams("tp2 f32", toks32, reqs32_, cfg.vocab_size)
+        compare("tp2 f32", toks32, plain32, "f32", what="tp=2 vs tp=1",
+                firsts_equal=False)
+        log(f"tp2 f32 engine [{card}]: TPOT p50 {p50(tpot32) * 1e3:.3f} ms")
+
+        descs, _ = handoffs(params32, cfg32, reqs32_, device=dev,
+                            attn_kernel="cuda", tp=TP)
+        got, _, _, _, hst = serve(params32, cfg32, reqs32_, device=dev,
+                                  attn_kernel="cuda", descs=descs,
+                                  role="decode")
+        ho = hst["handoff"]
+        if ho["imported"] != len(reqs32_) or ho["import_fallbacks"]:
+            raise AssertionError(f"tp2 -> tp1 handoff: {ho}")
+        check_streams("tp2 -> tp1 handoff", got, reqs32_, cfg.vocab_size)
+        same = sum(np_equal(g, r) for g, r in zip(got, plain32))
+        log(f"tp2 -> tp1 handoff (f32, paged fp, K1): {same}/{len(got)} "
+            f"streams identical to the colocated tp=1 engine's")
+        if same != len(got):
+            raise AssertionError(f"tp2 -> tp1 handoff: {same}/{len(got)} "
+                                 f"streams identical to the colocated "
+                                 f"tp=1 engine's")
+    finally:
+        group.close()
+    return [recs["fp"], recs["int8"]]
+
+
 def np_equal(a, b):
     return a.shape == b.shape and bool((a == b).all())
 
@@ -2197,10 +2361,14 @@ def main() -> int:
     handoff_phase(params, cfg, reqs, toks, (p50(ttft), p50(tpot)), reqs32,
                   toks8, nano_args, card)
     lifecycle_phase(params, cfg, reqs, toks, card)
+
+    # ---- 6c. tensor-parallel decode: two ranks on this card
+    records += tp_phase(params, cfg, reqs, toks, reqs32, toks8,
+                        (params32, cfg32, reqs32, plain32["fp"]), card)
     del params, params32
     torch.cuda.empty_cache()
 
-    # ---- 6c. Mixture-of-Experts serving: nano card vs CPU, GPT-2 small
+    # ---- 6d. Mixture-of-Experts serving: nano card vs CPU, GPT-2 small
     # with 8 experts through K1
     moe_nano_phase(card)
     moe_serve_phase(reqs, (toks, ttft, tpot, wall), card)

@@ -25,13 +25,17 @@ found under the same name:
   :class:`~ray_tpu_torch.serve.engine.DecodeEngine` (paged or flat pool,
   temperature > 0 with per-request seeds, ``resume_from`` replay,
   speculative decoding, prefill/decode roles with KV handoff, driver
-  supervision with epochs, drain, and the config plane);
+  supervision with epochs, drain, the config plane, and tensor
+  parallelism over ``tp`` ranks);
+- :mod:`ray_tpu_torch._private.tp` — tensor-parallel decode groups: rank
+  0 the calling process, the other ranks follower processes running the
+  same decode functions on their shards (gloo, or NCCL across cards);
 - :mod:`ray_tpu_torch.serve.handoff` — handoff payloads, their SHA-256
   digest and leases (inline shipping only);
 - :mod:`ray_tpu_torch.serve.draft` — the n-gram and model drafters.
 
-Not ported yet: tensor parallelism, the serve front (replicas, routing,
-tracing, metrics), and everything outside the GPT model's decode and
+Not ported yet: the serve front (replicas, routing, tracing, metrics),
+training parallelism, and everything outside the GPT model's decode and
 training step.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;

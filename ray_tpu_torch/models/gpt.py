@@ -252,6 +252,19 @@ def _mm(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype
     return torch.matmul(x.to(dtype), w.to(dtype)).to(dtype)
 
 
+def _mm_row(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype,
+            group=None) -> torch.Tensor:
+    """Row-parallel :func:`_mm` (``gpt_decode.py:206``): the f32 product
+    of the compute-dtype operands (upcast, exact), summed over ``group``
+    (a :mod:`~ray_tpu_torch._private.tp` rank's collectives) in f32,
+    then ONE cast, the cast point of :func:`_mm`. With ``group=None``
+    this IS ``_mm``, bit for bit."""
+    if group is None:
+        return _mm(x, w, dtype)
+    out = torch.matmul(x.to(dtype).float(), w.to(dtype).float())
+    return group.all_reduce(out).to(dtype)
+
+
 def _project_vocab(x: torch.Tensor, embed: torch.Tensor, cfg: GPTConfig
                    ) -> torch.Tensor:
     """Tied-embedding vocab projection, **f32 logits** out. The operands
@@ -306,11 +319,13 @@ def _attention(q, k, v, cfg: GPTConfig) -> torch.Tensor:
     return _attention_xla(q, k, v, cfg)
 
 
-def _ffn(h: torch.Tensor, p: Params, cfg: GPTConfig, aux: bool = True
-         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+def _ffn(h: torch.Tensor, p: Params, cfg: GPTConfig, aux: bool = True,
+         group=None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The block's FFN on the normed ``h`` → (y, load-balance term):
     the MoE FFN when ``cfg.n_experts > 0`` (its term ``None`` with
-    ``aux=False``), else the dense GELU MLP (term ``None``)."""
+    ``aux=False``), else the dense GELU MLP (term ``None``). Under a
+    tensor-parallel ``group`` (dense only) ``w1`` is this rank's column
+    slice and ``w2`` reduces through :func:`_mm_row`."""
     if cfg.n_experts > 0:
         from .moe import moe_ffn
 
@@ -318,7 +333,8 @@ def _ffn(h: torch.Tensor, p: Params, cfg: GPTConfig, aux: bool = True
                        top_k=cfg.expert_top_k,
                        capacity_factor=cfg.capacity_factor,
                        dtype=cfg.dtype, aux=aux)
-    return _mm(_gelu(_mm(h, p["w1"], cfg.dtype)), p["w2"], cfg.dtype), None
+    return _mm_row(_gelu(_mm(h, p["w1"], cfg.dtype)), p["w2"], cfg.dtype,
+                   group), None
 
 
 def _block(x: torch.Tensor, p: Params, cfg: GPTConfig

@@ -60,7 +60,19 @@ How the port differs from the reference, and why:
 - **One host transfer per chunk** for tokens, done flags and PRNG lanes
   (and one for the first token of a prefill), as the reference's
   ``np.asarray`` syncs.
-- Tensor parallelism (``shard_params``, ``_tp_*``) is a later slice.
+- **Tensor parallelism** (``gpt_decode.py:195-290``): where the
+  reference wraps each program in ``shard_map`` over a ``("tp",)`` mesh,
+  every rank of a :mod:`~ray_tpu_torch._private.tp` group runs these same
+  functions over its shard, with ``group=`` its collectives.
+  :func:`shard_params` keeps whole heads of the column-parallel
+  ``wq``/``wk``/``wv``/``w1`` and the matching rows of ``wo``/``w2``;
+  the pools hold ``n_head / tp`` heads (``init_*_cache(tp=)``);
+  :func:`_mm_row` all-reduces the row-parallel f32 partials before the
+  one cast. Rank 0 alone forms logits and samples, and broadcasts what
+  the others need to stay in step (each step's token, a verify's
+  accepted counts); an export gathers every head in order, so the
+  shipped bytes do not depend on ``tp``. ``group=None`` is the
+  single-device path, unchanged.
 """
 from __future__ import annotations
 
@@ -79,7 +91,7 @@ from ..ops.paged_attention import (deq_page as _deq_page,
                                    softmax_scale)
 from .gpt import GPTConfig, Params
 from .gpt import _ffn as _block_ffn
-from .gpt import _mm, _project_vocab, _rmsnorm, layer_params
+from .gpt import _mm, _mm_row, _project_vocab, _rmsnorm, layer_params
 
 Cache = Dict[str, torch.Tensor]
 
@@ -112,6 +124,47 @@ def _to_device(a, device: torch.device) -> torch.Tensor:
     return t.clone().to(device)
 
 
+# ------------------------------------------------------ tensor parallel
+#: Kernels sharded on their OUTPUT (last) axis: a rank owns whole heads
+#: (wq/wk/wv) or an FFN slice (w1), so its results are bitwise the
+#: single-device ones (``gpt_decode.py:199``).
+_TP_COL = frozenset({"wq", "wk", "wv", "w1"})
+#: Kernels sharded on their INPUT axis (axis 1 after the stacked layer
+#: axis): wo/w2 consume the sharded activations and all-reduce f32
+#: partials (``gpt_decode.py:203``).
+_TP_ROW = frozenset({"wo", "w2"})
+
+
+def shard_tensor(name: str, t: torch.Tensor, tp: int, rank: int
+                 ) -> torch.Tensor:
+    """Rank ``rank``'s slice of the weight ``name`` (``_tp_param_specs``,
+    ``gpt_decode.py:240``); embeddings and norm scales are replicated."""
+    if name in _TP_COL:
+        n = t.shape[-1] // tp
+        return t[..., rank * n:(rank + 1) * n].contiguous()
+    if name in _TP_ROW:
+        n = t.shape[1] // tp
+        return t[:, rank * n:(rank + 1) * n].contiguous()
+    return t
+
+
+def shard_params(params: Params, cfg: GPTConfig, tp: int, rank: int
+                 ) -> Params:
+    """Rank ``rank``'s weights for a ``tp``-way group
+    (``gpt_decode.py:278``); tp=1 returns ``params`` untouched."""
+    from .._private.tp import tp_validate   # that module imports this one
+
+    if tp_validate(cfg, tp) == 1:
+        return params
+    return {name: shard_tensor(name, t, tp, rank)
+            for name, t in params.items()}
+
+
+def _leads(group) -> bool:
+    """The rank that forms logits and samples: rank 0, or the only one."""
+    return group is None or group.rank == 0
+
+
 def _block_kv(x, p, cfg: GPTConfig):
     """Training block up to attention: returns (q, k, v), ``[B, S, H, hd]``
     each."""
@@ -123,12 +176,15 @@ def _block_kv(x, p, cfg: GPTConfig):
     return q, k, v
 
 
-def _ffn(x, p, cfg: GPTConfig):
+def _ffn(x, p, cfg: GPTConfig, group=None):
     """The block's FFN with its residual (``gpt_decode.py:317``): dense,
     or the MoE FFN with its load-balance term discarded. Every row of
     ``x`` competes for the experts' capacity, inactive slots' and pad
-    rows included, as in the reference."""
-    y, _ = _block_ffn(_rmsnorm(x, p["ln2_scale"]), p, cfg, aux=False)
+    rows included, as in the reference. Under ``group`` (dense only)
+    ``w1`` is this rank's column slice and ``w2`` reduces through
+    :func:`_mm_row`."""
+    y, _ = _block_ffn(_rmsnorm(x, p["ln2_scale"]), p, cfg, aux=False,
+                      group=group)
     return x + y
 
 
@@ -206,23 +262,25 @@ def _attend(q: torch.Tensor, kk: torch.Tensor, vv: torch.Tensor, valid,
 
 # --------------------------------------------------------------- flat pool
 def init_cache(cfg: GPTConfig, batch: int, max_len: int,
-               device: DeviceLike = None) -> Cache:
+               device: DeviceLike = None, tp: int = 1) -> Cache:
     """Zeroed flat cache for one batch at a shared depth
     (``gpt_decode.py:292``): ``k``/``v`` ``[L, batch, max_len, H, hd]``
-    in the compute dtype and a scalar int32 ``pos``."""
+    in the compute dtype and a scalar int32 ``pos``. ``tp > 1``: one
+    rank's cache, ``H = n_head / tp``."""
     dev = resolve_device(device)
-    shape = (cfg.n_layer, batch, max_len, cfg.n_head, cfg.head_dim)
+    shape = (cfg.n_layer, batch, max_len, cfg.n_head // tp, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
             "pos": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
 def init_slot_cache(cfg: GPTConfig, slots: int, max_len: int,
-                    device: DeviceLike = None) -> Cache:
+                    device: DeviceLike = None, tp: int = 1) -> Cache:
     """Zeroed flat slot pool (``gpt_decode.py:619``): ``max_len``
     positions reserved per slot and a per-slot ``pos [slots]``, so every
-    slot decodes at its own depth."""
-    cache = init_cache(cfg, slots, max_len, device)
+    slot decodes at its own depth. ``tp > 1``: one rank's pool, its
+    ``n_head / tp`` heads."""
+    cache = init_cache(cfg, slots, max_len, device, tp)
     cache["pos"] = torch.zeros(slots, dtype=torch.int32,
                                device=cache["k"].device)
     return cache
@@ -419,14 +477,16 @@ def generate_chunked(params: Params, prompt, cfg: GPTConfig,
 
 def prefill_into_slot(params: Params, cache: Cache, tokens, length: int,
                       slot: int, rng, *, cfg: GPTConfig,
-                      temperature: float = 0.0) -> Tuple[int, np.ndarray]:
+                      temperature: float = 0.0, group=None
+                      ) -> Tuple[int, np.ndarray]:
     """Run one right-padded prompt ``tokens [1, S_bucket]`` (true length
     ``length``) and write its K/V into slot ``slot`` of a flat pool
     (``gpt_decode.py:637``); ``pos[slot] = length``. The first token is
     sampled from position ``length - 1`` with the slot's key ``rng``
     (``np.uint32 [2]``). Returns ``(first_token, rng')`` in one
     transfer. Pad positions' K/V land beyond ``pos`` and are overwritten
-    before any query reads them."""
+    before any query reads them. Under ``group`` a follower returns
+    None."""
     dev = cache["k"].device
     tokens = np.asarray(tokens, np.int64).reshape(1, -1)
     S = tokens.shape[1]
@@ -438,10 +498,14 @@ def prefill_into_slot(params: Params, cache: Cache, tokens, length: int,
     for i in range(cfg.n_layer):
         p = layer_params(params, i)
         q, k, v = _block_kv(x, p, cfg)
-        x = x + _mm(_attend(q, k, v, mask, scale), p["wo"], cfg.dtype)
-        x = _ffn(x, p, cfg)
+        x = x + _mm_row(_attend(q, k, v, mask, scale), p["wo"], cfg.dtype,
+                        group)
+        x = _ffn(x, p, cfg, group)
         cache["k"][i, slot, :S] = k[0]
         cache["v"][i, slot, :S] = v[0]
+    if not _leads(group):
+        cache["pos"][slot] = length
+        return None
     last = min(max(length - 1, 0), S - 1)
     x = _rmsnorm(x[:, last:last + 1], params["ln_f_scale"])
     logits = _project_vocab(x, params["embed"], cfg)[:, 0]
@@ -453,12 +517,12 @@ def prefill_into_slot(params: Params, cache: Cache, tokens, length: int,
 
 def _slot_decode_step(params: Params, cache: Cache, token: torch.Tensor,
                       active: np.ndarray, pos: np.ndarray,
-                      cfg: GPTConfig) -> torch.Tensor:
+                      cfg: GPTConfig, group=None) -> torch.Tensor:
     """One decode step over a flat slot pool (``gpt_decode.py:691``):
     each active slot writes its K/V at its own ``pos[b]`` (host mirror of
     ``cache["pos"]``; a write at ``max_len`` or beyond is dropped) and
     attends over ``<= pos[b]``; inactive slots neither write nor advance.
-    Returns f32 logits ``[B, vocab]``."""
+    Returns f32 logits ``[B, vocab]`` (None on a follower of ``group``)."""
     dev = cache["k"].device
     max_len = cache["k"].shape[2]
     pos_d = cache["pos"]
@@ -474,20 +538,25 @@ def _slot_decode_step(params: Params, cache: Cache, token: torch.Tensor,
         kc, vc = cache["k"][i], cache["v"][i]
         kc[w[0], w[1]] = k[w[0], 0]
         vc[w[0], w[1]] = v[w[0], 0]
-        x = x + _mm(_attend(q, kc, vc, valid, scale), p["wo"], cfg.dtype)
-        x = _ffn(x, p, cfg)
+        x = x + _mm_row(_attend(q, kc, vc, valid, scale), p["wo"],
+                        cfg.dtype, group)
+        x = _ffn(x, p, cfg, group)
     pos_d += _to_device(active.astype(np.int32), dev)
+    if not _leads(group):
+        return None
     x = _rmsnorm(x, params["ln_f_scale"])
     return _project_vocab(x, params["embed"], cfg)[:, 0]
 
 
 def _chunk_slots(step: Callable, cache: Cache, token, rngs, active, *,
-                 k: int, temperature: float, eos_token: int):
+                 k: int, temperature: float, eos_token: int, group=None):
     """The k-step loop shared by the flat and paged slot pools:
     ``step(tok, pos) -> logits`` runs one decode step; sampling, EOS
     mask-and-carry and the PRNG lanes are the same for both. Returns
     host ``(tokens [B, k] int32, done [B] bool, rngs' [B, 2] uint32)``
-    in ONE transfer."""
+    in ONE transfer. Under ``group`` rank 0 samples and broadcasts each
+    step's tokens, which every rank feeds to the next step and writes
+    into its pool; followers return None."""
     dev = cache["k"].device
     active = np.asarray(active, bool)
     # At a chunk boundary the device queue is already drained (the last
@@ -501,13 +570,20 @@ def _chunk_slots(step: Callable, cache: Cache, token, rngs, active, *,
     toks = []
     for _ in range(k):
         logits = step(tok, pos)
-        nxt, keys = _sample_slots(logits, temperature, keys)
-        if eos_token >= 0:
-            nxt = torch.where(done, eos_token, nxt).to(torch.int32)
-            done = done | (act_d & (nxt == eos_token))
-        toks.append(nxt)
+        if _leads(group):
+            nxt, keys = _sample_slots(logits, temperature, keys)
+            if eos_token >= 0:
+                nxt = torch.where(done, eos_token, nxt).to(torch.int32)
+                done = done | (act_d & (nxt == eos_token))
+            toks.append(nxt)
+        else:
+            nxt = torch.empty_like(tok)
+        if group is not None:
+            group.broadcast(nxt, 0)
         tok = nxt
         pos = pos + active
+    if not _leads(group):
+        return None
     toks, done, keys = _to_host(torch.stack(toks, dim=1), done, keys)
     return (toks.astype(np.int32), done.astype(bool),
             keys.astype(np.uint32))
@@ -515,7 +591,7 @@ def _chunk_slots(step: Callable, cache: Cache, token, rngs, active, *,
 
 def decode_chunk_slots(params: Params, cache: Cache, token, rngs, active,
                        *, cfg: GPTConfig, k: int, temperature: float = 0.0,
-                       eos_token: int = -1
+                       eos_token: int = -1, group=None
                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """k decode steps over a flat slot pool (``gpt_decode.py:752``),
     decoding only slots where ``active`` is set. ``token [B]`` (each
@@ -526,10 +602,12 @@ def decode_chunk_slots(params: Params, cache: Cache, token, rngs, active,
     active = np.asarray(active, bool)
 
     def step(tok, pos):
-        return _slot_decode_step(params, cache, tok, active, pos, cfg)
+        return _slot_decode_step(params, cache, tok, active, pos, cfg,
+                                 group)
 
     return _chunk_slots(step, cache, token, rngs, active, k=k,
-                        temperature=temperature, eos_token=eos_token)
+                        temperature=temperature, eos_token=eos_token,
+                        group=group)
 
 
 # -------------------------------------------------------------- paged pool
@@ -549,22 +627,24 @@ def kv_bytes_per_page(cfg: GPTConfig, page_size: int,
 
 def init_paged_cache(cfg: GPTConfig, slots: int, n_pages: int,
                      page_size: int, kv_dtype: str = "fp",
-                     device: DeviceLike = None) -> Cache:
+                     device: DeviceLike = None, tp: int = 1) -> Cache:
     """Zeroed paged KV pool: ``k``/``v`` ``[L, n_pages, page_size, H,
     hd]``, per-slot virtual positions ``pos [slots]`` int32, and for int8
-    the ``ks``/``vs`` ``[L, n_pages, H]`` f32 scales."""
+    the ``ks``/``vs`` ``[L, n_pages, H]`` f32 scales. ``tp > 1``: one
+    rank's pool, ``H = n_head / tp`` (``gpt_decode.py:978``)."""
     if kv_dtype not in KV_DTYPES:
         raise ValueError(
             f"kv_dtype must be one of {KV_DTYPES}, got {kv_dtype!r}")
     dev = resolve_device(device)
-    shape = (cfg.n_layer, n_pages, page_size, cfg.n_head, cfg.head_dim)
+    H = cfg.n_head // tp
+    shape = (cfg.n_layer, n_pages, page_size, H, cfg.head_dim)
     quant = kv_dtype == "int8"
     dt = torch.int8 if quant else cfg.dtype
     cache = {"k": torch.zeros(shape, dtype=dt, device=dev),
              "v": torch.zeros(shape, dtype=dt, device=dev),
              "pos": torch.zeros(slots, dtype=torch.int32, device=dev)}
     if quant:
-        sshape = (cfg.n_layer, n_pages, cfg.n_head)
+        sshape = (cfg.n_layer, n_pages, H)
         cache["ks"] = torch.zeros(sshape, dtype=torch.float32, device=dev)
         cache["vs"] = torch.zeros(sshape, dtype=torch.float32, device=dev)
     return cache
@@ -679,7 +759,8 @@ def prefill_into_slot_paged(params: Params, cache: Cache, tokens,
                             cow_src: int, slot: int, rng, *,
                             cfg: GPTConfig, page_size: int,
                             temperature: float = 0.0,
-                            kv_dtype: str = "fp") -> Tuple[int, np.ndarray]:
+                            kv_dtype: str = "fp", group=None
+                            ) -> Tuple[int, np.ndarray]:
     """Prefill one prompt **suffix** into its pages, fused with the
     optional copy-on-write fork and the first-token sample
     (``gpt_decode.py:1199``); returns ``(first_token, rng')`` in one
@@ -700,7 +781,9 @@ def prefill_into_slot_paged(params: Params, cache: Cache, tokens,
     themselves, causally. With int8 pools the history dequantizes
     through :func:`_deq_page` and the suffix K/V land through
     :func:`_merge_span_int8`; the block math itself runs on the exact fp
-    K/V, so the first token does not depend on the quantizer."""
+    K/V, so the first token does not depend on the quantizer. Under
+    ``group`` each rank prefills its heads and a follower returns
+    None."""
     dev = cache["k"].device
     tokens = np.asarray(tokens, np.int64).reshape(1, -1)
     S = tokens.shape[1]
@@ -771,8 +854,8 @@ def prefill_into_slot_paged(params: Params, cache: Cache, tokens,
         probs = torch.softmax(logits, dim=-1).to(q.dtype)
         att = torch.einsum("bhqk,bkhd->bqhd", probs.float(),
                            vv.float()).to(q.dtype).reshape(1, S, -1)
-        x = x + _mm(att, p["wo"], cfg.dtype)
-        x = _ffn(x, p, cfg)
+        x = x + _mm_row(att, p["wo"], cfg.dtype, group)
+        x = _ffn(x, p, cfg, group)
         # This layer's history was read above; its writes come after.
         if quant:
             _merge_span_int8(cache["k"][i], cache["ks"][i], k, plan)
@@ -781,6 +864,9 @@ def prefill_into_slot_paged(params: Params, cache: Cache, tokens,
             cache["k"][i][w[1], w[2]] = k[0, w[0]]
             cache["v"][i][w[1], w[2]] = v[0, w[0]]
 
+    if not _leads(group):
+        cache["pos"][slot] = hist_len + length
+        return None
     x = _rmsnorm(x, params["ln_f_scale"])
     last = min(max(length - 1, 0), S - 1)
     logits = _project_vocab(x[:, last:last + 1], params["embed"], cfg)
@@ -795,7 +881,8 @@ def _slot_decode_step_paged(params: Params, cache: Cache,
                             token: torch.Tensor, active, pt, pos,
                             cfg: GPTConfig, page_size: int,
                             kv_dtype: str = "fp",
-                            attn_kernel: str = "gather") -> torch.Tensor:
+                            attn_kernel: str = "gather",
+                            group=None) -> torch.Tensor:
     """One decode step over every slot (``gpt_decode.py:1334``): each
     active slot writes its new K/V at ``(pt[b, pos[b] // ps], pos[b] %
     ps)`` (int8 pools merge through :func:`_merge_span_int8`), attends
@@ -805,7 +892,9 @@ def _slot_decode_step_paged(params: Params, cache: Cache,
 
     ``token [B]`` is on the pool's device; ``active [B]``, ``pt [B,
     max_pages]`` and ``pos [B]`` are host arrays (``pos`` mirrors
-    ``cache["pos"]``). Returns f32 logits ``[B, vocab]``."""
+    ``cache["pos"]``). Returns f32 logits ``[B, vocab]``, None on a
+    follower of ``group``; each rank's attention runs over its own
+    heads."""
     dev = cache["k"].device
     B = token.shape[0]
     ps = page_size
@@ -843,9 +932,11 @@ def _slot_decode_step_paged(params: Params, cache: Cache,
             vc[w[1], w[2]] = v[w[0], 0]
         att = paged_attention(q, kc, vc, pt_d, pos_d, page_size=ps,
                               kernel=attn_kernel, ks=ksc, vs=vsc)
-        x = x + _mm(att.reshape(B, 1, -1), p["wo"], cfg.dtype)
-        x = _ffn(x, p, cfg)
+        x = x + _mm_row(att.reshape(B, 1, -1), p["wo"], cfg.dtype, group)
+        x = _ffn(x, p, cfg, group)
     pos_d += _to_device(active.astype(np.int32), dev)
+    if not _leads(group):
+        return None
     x = _rmsnorm(x, params["ln_f_scale"])
     return _project_vocab(x, params["embed"], cfg)[:, 0]
 
@@ -854,7 +945,7 @@ def decode_chunk_slots_paged(params: Params, cache: Cache, token, rngs,
                              active, pt, *, cfg: GPTConfig, k: int,
                              page_size: int, temperature: float = 0.0,
                              eos_token: int = -1, kv_dtype: str = "fp",
-                             attn_kernel: str = "gather"
+                             attn_kernel: str = "gather", group=None
                              ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """k decode steps over the whole paged pool, the page table held
     constant through the chunk (``gpt_decode.py:1405``; the engine maps
@@ -872,10 +963,11 @@ def decode_chunk_slots_paged(params: Params, cache: Cache, token, rngs,
     def step(tok, pos):
         return _slot_decode_step_paged(params, cache, tok, active, pt, pos,
                                        cfg, page_size, kv_dtype,
-                                       attn_kernel)
+                                       attn_kernel, group)
 
     return _chunk_slots(step, cache, token, rngs, active, k=k,
-                        temperature=temperature, eos_token=eos_token)
+                        temperature=temperature, eos_token=eos_token,
+                        group=group)
 
 
 # ------------------------------------------------------ speculative verify
@@ -928,14 +1020,17 @@ def _spec_accept(logits: torch.Tensor, draft: torch.Tensor,
 
 
 def _verify(params: Params, cache: Cache, token, draft, rngs, active, *,
-            cfg: GPTConfig, k: int, temperature: float, plan: Callable):
+            cfg: GPTConfig, k: int, temperature: float, plan: Callable,
+            group=None):
     """The verify step shared by both pools: feeds ``[last, d_1..d_k]``
     at each slot's ``pos..pos+k`` (host ``pos``, read once at the round
     boundary), runs the layers with ``plan(active, pos, positions,
     pos_d) -> attend(layer, q, k, v)`` writing and attending the pool,
     scores all k+1 rows (:func:`_spec_accept`), advances ``pos`` by ``1 +
     n_acc`` on active slots, and returns host ``(committed, n_acc,
-    rngs')`` in ONE transfer."""
+    rngs')`` in ONE transfer. Under ``group`` rank 0 decides and
+    broadcasts ``n_acc``, by which every rank advances; followers return
+    None."""
     dev = cache["k"].device
     active = np.asarray(active, bool)
     pos = cache["pos"].cpu().numpy().astype(np.int64)
@@ -948,15 +1043,23 @@ def _verify(params: Params, cache: Cache, token, draft, rngs, active, *,
     for i in range(cfg.n_layer):
         p = layer_params(params, i)
         q, kk, vv = _block_kv(x, p, cfg)                # [B, S, H, hd]
-        x = x + _mm(attend(i, q, kk, vv), p["wo"], cfg.dtype)
-        x = _ffn(x, p, cfg)
-    x = _rmsnorm(x, params["ln_f_scale"])
-    logits = _project_vocab(x, params["embed"], cfg)           # [B, S, V]
-    committed, n_acc, keys = _spec_accept(
-        logits, _to_device(draft, dev), _keys(rngs, dev), temperature, k)
+        x = x + _mm_row(attend(i, q, kk, vv), p["wo"], cfg.dtype, group)
+        x = _ffn(x, p, cfg, group)
+    if _leads(group):
+        x = _rmsnorm(x, params["ln_f_scale"])
+        logits = _project_vocab(x, params["embed"], cfg)       # [B, S, V]
+        committed, n_acc, keys = _spec_accept(
+            logits, _to_device(draft, dev), _keys(rngs, dev), temperature,
+            k)
+    else:
+        n_acc = torch.empty(pos.shape[0], dtype=torch.int32, device=dev)
+    if group is not None:
+        group.broadcast(n_acc, 0)
     cache["pos"] += ((1 + n_acc)
                      * _to_device(active.astype(np.int32), dev)
                      ).to(torch.int32)
+    if not _leads(group):
+        return None
     committed, n_acc, keys = _to_host(committed, n_acc, keys)
     return (committed.astype(np.int32), n_acc.astype(np.int32),
             keys.astype(np.uint32))
@@ -964,7 +1067,7 @@ def _verify(params: Params, cache: Cache, token, draft, rngs, active, *,
 
 def verify_chunk_slots(params: Params, cache: Cache, token, draft, rngs,
                        active, *, cfg: GPTConfig, k: int,
-                       temperature: float = 0.0
+                       temperature: float = 0.0, group=None
                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """ONE batched target forward verifying k drafted tokens per active
     slot of a flat pool (``gpt_decode.py:1606``). Feeds ``[last,
@@ -995,13 +1098,13 @@ def verify_chunk_slots(params: Params, cache: Cache, token, draft, rngs,
         return attend
 
     return _verify(params, cache, token, draft, rngs, active, cfg=cfg, k=k,
-                   temperature=temperature, plan=plan)
+                   temperature=temperature, plan=plan, group=group)
 
 
 def verify_chunk_slots_paged(params: Params, cache: Cache, token, draft,
                              rngs, active, pt, *, cfg: GPTConfig, k: int,
                              page_size: int, temperature: float = 0.0,
-                             kv_dtype: str = "fp"
+                             kv_dtype: str = "fp", group=None
                              ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Paged twin of :func:`verify_chunk_slots` (``gpt_decode.py:1680``):
     K/V of ``pos + i`` land at ``(pt[b, (pos+i) // ps], (pos+i) % ps)``
@@ -1054,7 +1157,7 @@ def verify_chunk_slots_paged(params: Params, cache: Cache, token, draft,
         return attend
 
     return _verify(params, cache, token, draft, rngs, active, cfg=cfg, k=k,
-                   temperature=temperature, plan=plan)
+                   temperature=temperature, plan=plan, group=group)
 
 
 # ------------------------------------------------------- KV handoff (ship)
@@ -1094,7 +1197,7 @@ def kv_from_host(a, dtype: torch.dtype, device: torch.device
 
 
 def export_slot_kv(cache: Cache, slot: int, *, cfg: GPTConfig,
-                   length: Optional[int] = None
+                   length: Optional[int] = None, group=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One slot's K/V rows from a FLAT pool for a prefill → decode
     handoff (``gpt_decode.py:1782``): ``(k, v)``, each ``[L, max_len, H,
@@ -1102,17 +1205,22 @@ def export_slot_kv(cache: Cache, slot: int, *, cfg: GPTConfig,
     length, H, hd]`` on the device, so only the shipped positions cross
     to the host (the reference copies the whole row and trims there: the
     shipped bytes are the same). ``slot`` clamps like the reference's
-    ``dynamic_slice`` start."""
+    ``dynamic_slice`` start. Under ``group`` every rank's heads are
+    gathered in order (``jit_export_slot_kv``, ``gpt_decode.py:1878``):
+    the canonical layout, the same bytes for any ``tp``."""
     B, M = cache["k"].shape[1:3]
     slot = min(max(int(slot), 0), B - 1)
     n = M if length is None else int(length)
-    return (cache["k"][:, slot, :n].clone(),
+    k, v = (cache["k"][:, slot, :n].clone(),
             cache["v"][:, slot, :n].clone())
+    if group is None:
+        return k, v
+    return group.gather_heads(k, 2), group.gather_heads(v, 2)
 
 
 def export_slot_kv_paged(cache: Cache, pt_row, *, cfg: GPTConfig,
                          page_size: int, kv_dtype: str = "fp",
-                         length: Optional[int] = None):
+                         length: Optional[int] = None, group=None):
     """Paged twin of :func:`export_slot_kv` (``gpt_decode.py:1803``): the
     slot's pages gathered through its page-table row ``pt_row
     [max_pages]`` (host) into virtual order, ``(k, v)`` each ``[L,
@@ -1122,7 +1230,8 @@ def export_slot_kv_paged(cache: Cache, pt_row, *, cfg: GPTConfig,
     max_pages, H]``. ``length`` gathers only the ``ceil(length /
     page_size)`` covering pages and trims K/V to ``length`` positions
     on the device: the bytes the reference ships after trimming on the
-    host."""
+    host. Under ``group`` the heads are gathered as in
+    :func:`export_slot_kv`."""
     pt = np.asarray(pt_row, np.int64).reshape(-1)
     if length is not None:
         pt = pt[:-(-int(length) // page_size)]
@@ -1132,9 +1241,11 @@ def export_slot_kv_paged(cache: Cache, pt_row, *, cfg: GPTConfig,
     n = pt.shape[0] * page_size if length is None else int(length)
     k = cache["k"][:, idx].reshape(L, -1, H, hd)[:, :n]
     v = cache["v"][:, idx].reshape(L, -1, H, hd)[:, :n]
-    if kv_dtype == "int8":
-        return k, v, cache["ks"][:, idx], cache["vs"][:, idx]
-    return k, v
+    out = (k, v) + ((cache["ks"][:, idx], cache["vs"][:, idx])
+                    if kv_dtype == "int8" else ())
+    if group is None:
+        return out
+    return tuple(group.gather_heads(t, 2) for t in out)
 
 
 def import_slot_kv(cache: Cache, k_row, v_row, slot: int, length: int, *,

@@ -1,6 +1,7 @@
 """Continuous-batching decode engine: the port of
-``ray_tpu/serve/engine.py`` (one device; paged or flat pool; greedy or
-seeded sampling; optional speculative decoding).
+``ray_tpu/serve/engine.py`` (one device or a tensor-parallel group;
+paged or flat pool; greedy or seeded sampling; optional speculative
+decoding).
 
 One driver thread owns every device dispatch; ``submit``/``stream`` only
 enqueue and are safe from any thread. The design is the reference's:
@@ -53,6 +54,14 @@ enqueue and are safe from any thread. The design is the reference's:
   so a stale driver drops its results), :meth:`DecodeEngine.drain`
   stops admissions and lets running lanes finish, and
   :meth:`DecodeEngine.inject_fault` arms the chaos faults.
+- **Tensor parallelism** (``tp=N``): the weights and the pool are
+  sharded over the ``N`` ranks of a
+  :func:`~ray_tpu_torch._private.tp.decode_group` (this process is rank
+  0, the others are follower processes), and every pool call runs on
+  every rank (:class:`~ray_tpu_torch._private.tp.Shards`), tied to the
+  driver's epoch. The host side (allocator, prefix cache, drafter,
+  handoff plane) is rank 0's alone, as in the reference; the drafter
+  keeps the unsharded weights.
 - **Config plane**: :meth:`DecodeEngine.apply_config` routes a
   deployment's ``engine:`` knobs to :meth:`DecodeEngine.ensure_paging`,
   :meth:`DecodeEngine.ensure_spec`, :meth:`DecodeEngine.ensure_role`
@@ -63,10 +72,10 @@ At temperature 0 each stream is token-identical to the reference's
 ``generate_chunked`` for the same prompt, and at temperature > 0 to the
 reference engine's stream for the same seed (f32 compute; asserted in
 ``tests/test_torch_engine.py``, ``tests/test_torch_engine_spec.py``,
-``tests/test_torch_handoff.py`` and
-``tests/test_torch_engine_lifecycle.py``). Left for later slices: tensor
-parallelism (``tp`` > 1) and the serve front (tracing, flight-recorder
-events and metrics).
+``tests/test_torch_handoff.py``,
+``tests/test_torch_engine_lifecycle.py`` and, at ``tp`` 2 and 4,
+``tests/test_torch_engine_tp.py``). Left for a later slice: the serve
+front (tracing, flight-recorder events and metrics).
 """
 from __future__ import annotations
 
@@ -83,6 +92,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from .._private import prng
+from .._private import tp as _tp
 from .._private.device import (DeviceLike, resolve_device,
                                set_matmul_precision)
 from ..models import gpt_decode
@@ -321,6 +331,11 @@ class DecodeEngine:
     - ``role`` (``"both"``, ``"prefill"``, ``"decode"``) gates the
       disaggregation paths; ``handoff_ttl_s`` is the default lease life
       of an exported payload.
+    - ``tp`` shards the model over that many ranks: 1 runs on ``device`` alone; above it the engine joins
+      the cached :func:`~ray_tpu_torch._private.tp.decode_group` for
+      ``tp`` (by default one card per rank with NCCL, or gloo processes
+      on the CPU; register another first). MoE configs and widths
+      ``tp`` does not divide raise ``ValueError``.
     - ``wedge_timeout_s`` is the heartbeat age at which
       :meth:`supervise` calls a live driver wedged;
       ``max_driver_restarts`` how many restarts it makes before it
@@ -337,8 +352,8 @@ class DecodeEngine:
                  spec_threshold: float = 0.0, role: str = "both",
                  handoff_ttl_s: float = 30.0,
                  wedge_timeout_s: float = 30.0,
-                 max_driver_restarts: int = 1, device: DeviceLike = None,
-                 auto_start: bool = True):
+                 max_driver_restarts: int = 1, tp: int = 1,
+                 device: DeviceLike = None, auto_start: bool = True):
         self.cfg = cfg
         self.slots = int(slots)
         self.chunk = int(chunk)
@@ -393,6 +408,9 @@ class DecodeEngine:
         self.kv_dtype = kv_dtype
         self.device = resolve_device(device)
         set_matmul_precision(self.device)
+        # Validated before anything is built: a bad (cfg, tp) pair fails
+        # at construction, not at the first dispatch.
+        self.tp = _tp.tp_validate(cfg, tp, self.device)
         self.params = {k: v.to(self.device) for k, v in params.items()}
         self._drafter = make_drafter(spec_decode, self.params, cfg)
         if self._drafter is not None:
@@ -404,6 +422,11 @@ class DecodeEngine:
         # reads again) and every swap of the pool structures: each
         # _build_pool call holds it.
         self._admit_lock = threading.Lock()
+        # The epoch of the driver run on this thread (set in _run): a
+        # group call from a retired epoch is refused (_stale_call).
+        self._driver = threading.local()
+        self._epoch = 0
+        self._shards = self._new_shards(self.tp)
         with self._admit_lock:
             self._build_pool(paged, page_size, n_pages, prefix_cache)
 
@@ -444,7 +467,6 @@ class DecodeEngine:
         self.wedge_timeout_s = float(wedge_timeout_s)
         self.max_driver_restarts = int(max_driver_restarts)
         self._beat = time.monotonic()
-        self._epoch = 0
         self._shutdown = False
         self._supervise_lock = threading.Lock()
         #: Chaos fault armed by inject_fault() (testing only).
@@ -453,24 +475,65 @@ class DecodeEngine:
         if auto_start:
             self.start()
 
+    # ------------------------------------------------- tensor parallelism
+    def _new_shards(self, tp: int) -> Optional[_tp.Shards]:
+        """This engine's state on the ranks of the group for ``tp``
+        (weights sent to the followers now), or None at tp=1."""
+        if tp == 1:
+            return None
+        return _tp.Shards(_tp.decode_group(tp, device=self.device),
+                          self.cfg, self.params, self.device,
+                          stale=self._stale_call)
+
+    def _stale_call(self) -> bool:
+        """A group call from a driver run a restart retired (asked under
+        the group's lock, before the call is sent)."""
+        return getattr(self._driver, "epoch", self._epoch) != self._epoch
+
+    def _fn(self, name: str):
+        """``gpt_decode.<name>``, run on every rank of the group at tp >
+        1 (same arguments, rank 0's state first)."""
+        if self._shards is None:
+            return getattr(gpt_decode, name)
+        return functools.partial(self._shards.call, name)
+
+    def _heads(self, a, axis: int):
+        """A canonical payload array that each rank takes its heads of."""
+        return a if self._shards is None else _tp.Heads(a, axis)
+
+    def _new_pool(self, fn_name: str, **kw):
+        """``gpt_decode.<fn_name>`` on this device, or on every rank."""
+        if self._shards is None:
+            return getattr(gpt_decode, fn_name)(device=self.device, **kw)
+        return self._shards.build(fn_name, **kw)
+
     def _build_pool(self, paged: bool, page_size: int, n_pages: int,
                     prefix_cache: bool):
         """Allocate THE pool, flat or paged (``engine.py:606``), and bind
-        the chunk step ``_step(token, rngs, active)`` to it. Called at
-        construction, by :meth:`ensure_paging` on an unused engine and by
+        the chunk step ``_step(token, rngs, active)`` to it, on every
+        rank at tp > 1. Called at construction, by :meth:`ensure_paging`
+        and :meth:`ensure_tp` on an unused engine and by
         :meth:`_restart_driver`; every caller holds ``_admit_lock``."""
         cfg = self.cfg
         self.paged = bool(paged)
+        if self._shards is not None and self._shards.group.closed:
+            # The group failed (a collective timed out or a follower
+            # died): load the weights into a new one on its devices.
+            self._shards = self._new_shards(self.tp)
+        # The dispatch-side weights: rank 0's shard at tp > 1.
+        self._params_dev = self.params if self._shards is None \
+            else self._shards.params
         knobs = dict(cfg=cfg, k=self.chunk, temperature=self.temperature,
                      eos_token=self.eos_token)
         if not self.paged:
             self.page_size = self.n_pages = self.max_pages = 0
             self._pool = self._prefix = self._pt = None
-            self._cache = gpt_decode.init_slot_cache(
-                cfg, self.slots, self.max_len, self.device)
+            self._cache = self._new_pool(
+                "init_slot_cache", cfg=cfg, slots=self.slots,
+                max_len=self.max_len)
             self._step = functools.partial(
-                gpt_decode.decode_chunk_slots, self.params, self._cache,
-                **knobs)
+                self._fn("decode_chunk_slots"), self._params_dev,
+                self._cache, **knobs)
             self._bind_verify()
             return
         self.page_size = int(page_size)
@@ -491,13 +554,14 @@ class DecodeEngine:
             if prefix_cache else None
         self._pt = np.full((self.slots, self.max_pages),
                            gpt_decode.PT_SENTINEL, np.int32)
-        self._cache = gpt_decode.init_paged_cache(
-            cfg, self.slots, self.n_pages, self.page_size, self.kv_dtype,
-            self.device)
+        self._cache = self._new_pool(
+            "init_paged_cache", cfg=cfg, slots=self.slots,
+            n_pages=self.n_pages, page_size=self.page_size,
+            kv_dtype=self.kv_dtype)
         self._step = functools.partial(
-            gpt_decode.decode_chunk_slots_paged, self.params, self._cache,
-            pt=self._pt, page_size=self.page_size, kv_dtype=self.kv_dtype,
-            attn_kernel=self.attn_kernel, **knobs)
+            self._fn("decode_chunk_slots_paged"), self._params_dev,
+            self._cache, pt=self._pt, page_size=self.page_size,
+            kv_dtype=self.kv_dtype, attn_kernel=self.attn_kernel, **knobs)
         self._bind_verify()
 
     def _bind_verify(self):
@@ -510,13 +574,13 @@ class DecodeEngine:
             self._verify = None
         elif self.paged:
             self._verify = functools.partial(
-                gpt_decode.verify_chunk_slots_paged, self.params,
+                self._fn("verify_chunk_slots_paged"), self._params_dev,
                 self._cache, pt=self._pt, page_size=self.page_size,
                 kv_dtype=self.kv_dtype, **knobs)
         else:
             self._verify = functools.partial(
-                gpt_decode.verify_chunk_slots, self.params, self._cache,
-                **knobs)
+                self._fn("verify_chunk_slots"), self._params_dev,
+                self._cache, **knobs)
 
     def _used(self, exports: bool = False) -> bool:
         """The engine has admitted (``exports``: or exported) or holds
@@ -660,14 +724,30 @@ class DecodeEngine:
         return self
 
     def ensure_tp(self, tp: Optional[int] = None):
-        """The tensor-parallel width (``engine.py:856``). The port runs
-        ``tp=1`` only: 1 (or None) is a no-op, any other width raises
-        until tensor-parallel decode is ported."""
-        if tp is None or int(tp) == 1:
+        """Idempotently apply the tensor-parallel width
+        (``engine.py:856``). A matching engine is a no-op; a mismatched
+        one is rebuilt on the new width IF it has never admitted a
+        request, else this raises: every rank's weights and pool are
+        laid out for the width."""
+        if tp is None:
             return self
-        raise NotImplementedError(
-            f"tp={int(tp)}: tensor-parallel decode is not ported yet "
-            f"(ROADMAP.md Queue 1); this engine runs tp=1")
+        want = int(tp)
+        with self._admit_lock:
+            if want == self.tp:
+                return self
+            if self._used():
+                raise ValueError(
+                    f"cannot change tp ({self.tp} -> {want}) on a live "
+                    f"engine; construct it with tp= or apply the config "
+                    f"before traffic")
+            new = self._new_shards(_tp.tp_validate(self.cfg, want,
+                                                   self.device))
+            if self._shards is not None:
+                self._shards.drop()
+            self.tp, self._shards = want, new
+            self._build_pool(self.paged, self.page_size, self.n_pages,
+                             self._prefix is not None)
+        return self
 
     #: Config-plane knob split for :meth:`apply_config`.
     _PAGE_KEYS = ("page_size", "prefix_cache", "n_pages",
@@ -918,6 +998,11 @@ class DecodeEngine:
             return
         with self._admit_lock:
             self._draining = False
+            if self._shards is not None and self._shards.eid is None:
+                # Shut down before: the followers dropped this engine.
+                self._shards.load(self.params)
+                self._build_pool(self.paged, self.page_size, self.n_pages,
+                                 self._prefix is not None)
         self._shutdown = False
         self._stop = threading.Event()
         self._beat = time.monotonic()
@@ -938,6 +1023,10 @@ class DecodeEngine:
         alive = self._thread is not None and self._thread.is_alive()
         self._fail_all(EngineShutdownError("engine shut down"),
                        free_state=not alive)
+        if self._shards is not None:
+            # The followers free this engine's weights and pool; a
+            # driver that outlived the join is refused from now on.
+            self._shards.drop()
 
     def drain(self, timeout_s: float = 5.0) -> bool:
         """Graceful wind-down (``engine.py:1258``): admissions stop now
@@ -1101,6 +1190,7 @@ class DecodeEngine:
             "leases_reclaimed": ls["reclaimed"],
         }
         out["paged"] = self.paged
+        out["tp"] = self.tp
         out["attn_kernel"] = self.attn_kernel
         out["kv_dtype"] = self.kv_dtype
         ps = self.page_size or 1
@@ -1123,6 +1213,7 @@ class DecodeEngine:
         return epoch >= 0 and epoch != self._epoch
 
     def _run(self, stop: threading.Event, epoch: int):
+        self._driver.epoch = epoch
         try:
             while not stop.is_set():
                 # Heartbeat before any work: supervise() reads its age to
@@ -1152,6 +1243,11 @@ class DecodeEngine:
                     self._dispatch_spec(epoch)
                 else:
                     self._dispatch_chunk(epoch)
+            self._fail_all(EngineShutdownError("engine shut down"),
+                           epoch=epoch)
+        except _tp.GroupCallRefused:
+            # Retired by a restart (the epoch guard makes this a no-op)
+            # or shut down: nothing reached the group.
             self._fail_all(EngineShutdownError("engine shut down"),
                            epoch=epoch)
         except BaseException as e:  # noqa: BLE001 - driver died: fan out
@@ -1285,8 +1381,8 @@ class DecodeEngine:
         else:
             padded = np.zeros((1, req.bucket), np.int32)
             padded[0, :P] = req.prompt
-            first, rng = gpt_decode.prefill_into_slot(
-                self.params, self._cache, padded, P, slot, key,
+            first, rng = self._fn("prefill_into_slot")(
+                self._params_dev, self._cache, padded, P, slot, key,
                 cfg=self.cfg, temperature=self.temperature)
             if self._stale(epoch):
                 return True          # stale driver: drop on the floor
@@ -1374,8 +1470,8 @@ class DecodeEngine:
                          np.int32)
         pt_row[:len(pages)] = pages
         pt[slot] = pt_row
-        first, rng = gpt_decode.prefill_into_slot_paged(
-            self.params, cache, padded, sl, hist, pt_row, cow_src,
+        first, rng = self._fn("prefill_into_slot_paged")(
+            self._params_dev, cache, padded, sl, hist, pt_row, cow_src,
             slot, key, cfg=self.cfg, page_size=ps,
             temperature=self.temperature, kv_dtype=self.kv_dtype)
         if partial:
@@ -1403,13 +1499,13 @@ class DecodeEngine:
         slot never enters steady state."""
         quant = self.paged and self.kv_dtype == "int8"
         if self.paged:
-            dev = gpt_decode.export_slot_kv_paged(
+            dev = self._fn("export_slot_kv_paged")(
                 self._cache, self._pt[slot], cfg=self.cfg,
                 page_size=self.page_size, kv_dtype=self.kv_dtype,
                 length=P)
         else:
-            dev = gpt_decode.export_slot_kv(self._cache, slot,
-                                            cfg=self.cfg, length=P)
+            dev = self._fn("export_slot_kv")(self._cache, slot,
+                                             cfg=self.cfg, length=P)
         host = gpt_decode.kv_to_host(*dev)
         k, v = host[:2]
         ks, vs = host[2:] if quant else (None, None)
@@ -1460,11 +1556,12 @@ class DecodeEngine:
             pt_row[:len(pages)] = pages
             pt[slot] = pt_row
             quant = self.kv_dtype == "int8"
-            gpt_decode.import_slot_kv_paged(
-                cache, payload["k"], payload["v"], pt_row, slot, P,
+            self._fn("import_slot_kv_paged")(
+                cache, self._heads(payload["k"], -2),
+                self._heads(payload["v"], -2), pt_row, slot, P,
                 cfg=self.cfg, page_size=self.page_size,
-                ks_pages=payload["ks"] if quant else None,
-                vs_pages=payload["vs"] if quant else None)
+                ks_pages=self._heads(payload["ks"], -1) if quant else None,
+                vs_pages=self._heads(payload["vs"], -1) if quant else None)
             if self._stale(epoch):
                 pool.unref(pages)     # stale driver: hand pages back
                 return True
@@ -1474,8 +1571,9 @@ class DecodeEngine:
                 prefix.insert(req.prompt, pages)
         else:
             pages = []
-            gpt_decode.import_slot_kv(self._cache, payload["k"],
-                                      payload["v"], slot, P, cfg=self.cfg)
+            self._fn("import_slot_kv")(
+                self._cache, self._heads(payload["k"], -2),
+                self._heads(payload["v"], -2), slot, P, cfg=self.cfg)
             if self._stale(epoch):
                 return True
         first = int(payload["first"])

@@ -415,13 +415,20 @@ def test_apply_config_routes_tp_paging_and_role(torch_params):
     try:
         eng.apply_config(tp=1, page_size=None, role=None)   # no-ops
         assert not eng.paged and eng.role == "both"
-        with pytest.raises(NotImplementedError, match="tp=2"):
-            eng.apply_config(tp=2)
+        # tp applies on an unused engine (engine.py:856), and back.
+        eng.apply_config(tp=2)
+        assert eng.tp == 2 and eng.stats()["tp"] == 2
+        eng.apply_config(tp=1)
+        assert eng.tp == 1 and eng.stats()["tp"] == 1
         eng.ensure_tp(None)
         eng.apply_config(page_size=8, role="decode", handoff_ttl_s=3.0)
         assert eng.paged and eng.page_size == 8
         assert eng.role == "decode" and eng._leases.ttl_s == 3.0
         assert eng.stats()["role"] == "decode"
+        eng.apply_config(role="both")
+        list(eng.stream(np.arange(5, dtype=np.int32), 3))
+        with pytest.raises(ValueError, match="live engine"):
+            eng.apply_config(tp=2)                  # a live engine refuses
     finally:
         eng.shutdown()
 

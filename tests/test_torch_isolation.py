@@ -9,10 +9,14 @@ included) and of ``chip_smoke.py``, and by serving nano requests
 drafter), handing one request off from a prefill engine to a decode
 engine, taking a nano train step (flash attention, ``dots`` remat), and
 serving one request and taking one train step with a nano
-Mixture-of-Experts model, in a fresh interpreter where ``jax`` and ``ml_dtypes`` are poisoned in
+Mixture-of-Experts model, and serving one request on a tp=2 engine, in
+a fresh interpreter where ``jax`` and ``ml_dtypes`` are poisoned in
 ``sys.modules`` and an import hook refuses them and ``ray_tpu`` and
 ``ray_tpu.*`` (but not ``ray_tpu_torch``). A subprocess, because this
-suite's conftest imports JAX into the test process.
+suite's conftest imports JAX into the test process. The tp=2 engine's
+follower process is spawned afresh, without that block, so it reports
+the modules it imported over the group, after serving, and none of
+them may be ``jax``, ``ml_dtypes`` or ``ray_tpu``.
 """
 import ast
 import os
@@ -35,7 +39,8 @@ def test_no_jax_or_reference_imports_in_source():
     files = [os.path.join(d, f) for d, _, fs in os.walk(PKG)
              for f in fs if f.endswith(".py")]
     assert len(files) >= 10
-    for must in ("_private/prng.py", "serve/draft.py", "serve/handoff.py"):
+    for must in ("_private/prng.py", "_private/tp.py", "serve/draft.py",
+                 "serve/handoff.py"):
         assert os.path.join(PKG, must) in files, must
     files.append(os.path.join(ROOT, "chip_smoke.py"))
     bad = []
@@ -139,6 +144,20 @@ init, step = gpt.make_train_step(dataclasses.replace(tcfg, n_experts=4),
 state, metrics = step(init(seed=0), {"tokens": np.arange(
     2 * 17, dtype=np.int64).reshape(2, 17) % cfg.vocab_size})
 assert float(metrics["moe_aux"]) > 0, metrics
+# Tensor parallelism: a tp=2 engine; its follower reports its modules.
+from ray_tpu_torch._private import tp
+
+eng = DecodeEngine(params, cfg, slots=2, chunk=4, max_len=64,
+                   prompt_buckets=(8, 16), page_size=8, tp=2, device="cpu")
+try:
+    out = np.concatenate(list(eng.stream(np.arange(7, dtype=np.int32), 6)))
+finally:
+    eng.shutdown()
+assert out.shape == (6,), out
+report, = tp.decode_group(2).probe()
+assert "torch" in report["modules"], report
+follower = sorted(set(report["modules"]) & set(BLOCKED))
+assert not follower, follower
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in BLOCKED
                 and sys.modules[m] is not None)

@@ -222,7 +222,8 @@ def test_zero_router_drops_by_position(weights):
 
 def test_engine_config_plane_accepts_moe(weights):
     """``apply_config`` (paging, speculation, role) and ``ensure_paging``
-    take an MoE engine; ``tp`` stays 1."""
+    take an MoE engine; ``tp`` stays 1: above it an MoE config is
+    refused as the reference refuses it (``gpt_decode.py:228``)."""
     _, tcfg = _cfgs(1.25)
     eng = DecodeEngine(weights[1], tcfg, device="cpu", auto_start=False,
                        paged=False, **{k: v for k, v in KW.items()
@@ -235,7 +236,8 @@ def test_engine_config_plane_accepts_moe(weights):
         assert eng._drafter.cfg.n_experts == 4
         eng.ensure_paging(page_size=8, kv_dtype="fp")
         assert eng.kv_dtype == "fp"
-        with pytest.raises(NotImplementedError, match="tp=2"):
+        with pytest.raises(ValueError, match="MoE"):
             eng.ensure_tp(2)
+        assert eng.tp == 1
     finally:
         eng.shutdown()
