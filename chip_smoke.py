@@ -109,7 +109,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
    flip a route), nano with 4 experts card vs CPU (losses and
    ``moe_aux``), and GPT-2 small with 8 experts at bench.py's shape
    (loss falling, ``moe_aux`` finite and positive, K2/K3 24/12/12 per
-   step, MFU with its FLOP count written out).
+   step, MFU with its FLOP count written out);
+8. sharded training (``parallel_train_phase``): two rank processes on
+   this card over gloo run ``make_train_step`` over a mesh: 2 layers at
+   f32 on {fsdp:2}, {tp:2}, {dp:2} against one rank on the card (losses
+   within ``PAR_LOSS_RTOL``), 12 layers bf16 at bench.py's shape on
+   {fsdp:2} and {tp:2} (loss falling, K2/K3 24/12/12 a step on each
+   rank, tok/s, step ms and peak memory per rank, not a speed figure),
+   a sharded checkpoint saved at {fsdp:2} and loaded at {tp:2}
+   bit-equal; then K2/K3 at the ranks' shapes (B=16, H=6) against their
+   plain versions, timed.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Needs one card, no network.
@@ -576,7 +585,6 @@ def flash_kernel_phase(card: str) -> list:
     timed here only; the port never calls it) and the card's bound."""
     import numpy as np
     import torch
-    import torch.nn.functional as F
 
     from ray_tpu_torch.ops import flash_attention as fa
 
@@ -599,6 +607,22 @@ def flash_kernel_phase(card: str) -> list:
     scale = 0.125
     qs = fa.scale_q(qs, scale)
     errs = _flash_hold("train", qs, k, v, do, scale, True)
+    records = _flash_time(qs, k, v, do, scale, errs, card)
+    del qs, k, v, do
+    torch.cuda.empty_cache()
+    return records
+
+
+def _flash_time(qs, k, v, do, scale, errs, card, suffix="") -> list:
+    """K2, K3a, K3b timed on (qs, k, v, do) beside the plain versions,
+    SDPA (a yardstick timed here only; the port never calls it) and the
+    card's bound: one record per kernel, named with ``suffix``."""
+    import torch
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    B, S, H, hd = qs.shape
     torch.cuda.empty_cache()
     o, lse = fa.flash_fwd(qs, k, v, True)
     delta = fa._delta(do, o).contiguous()
@@ -641,7 +665,8 @@ def flash_kernel_phase(card: str) -> list:
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / BF16_FLOPS * 1e3
         fwd = name == "flash_attention_fwd"
-        rec = {"name": name, "route": "cuda", "source": FLASH_SOURCE,
+        rec = {"name": name + suffix, "route": "cuda",
+               "source": FLASH_SOURCE,
                "replaces": FLASH_REPLACES[name], "launches": 0,
                "max_abs_err": errs[name], "ms": ms[name],
                "plain_ms": plain_fwd if fwd else plain_bwd,
@@ -656,11 +681,11 @@ def flash_kernel_phase(card: str) -> list:
             f"({rec['bound_by']}: {nbytes} B, {flops} flop) roofline_share="
             f"{rec['bound_ms'] / rec['ms']:.3f}")
         records.append(rec)
-    log(f"flash backward [{card}]: K3a + K3b = "
+    log(f"flash backward [{card}] (B={B} H={H}): K3a + K3b = "
         f"{ms['flash_attention_bwd_dkdv'] + ms['flash_attention_bwd_dq']:.6g}"
         f" ms (plus delta) against the plain backward {plain_bwd:.6g} ms and"
         f" SDPA's backward {lib_bwd:.6g} ms (both compute dq, dk, dv)")
-    del qs, k, v, do, o, lse, delta, qt, kt, vt, dot, qg, kg, vg
+    del o, lse, delta, qt, kt, vt, dot, qg, kg, vg
     torch.cuda.empty_cache()
     return records
 
@@ -692,7 +717,7 @@ def train_phase(card: str, n_experts: int = 0) -> dict:
                               attn_backend="flash", n_experts=n_experts)
     label = f"train small MoE ({n_experts} experts)" if n_experts else \
         "train small"
-    init, step = gpt.make_train_step(cfg, device="cuda")
+    init, step, _, _ = gpt.make_train_step(cfg, device="cuda")
     state = init(seed=0)
     batch = _train_batch(cfg, TRAIN_B, TRAIN_S, 5, "cuda")
     out = []
@@ -814,7 +839,7 @@ def flash_vs_xla_phase(card: str, base=None) -> None:
     grads, loss2 = {}, {}
     for backend in ("flash", "xla"):
         cfg = dataclasses.replace(base, attn_backend=backend)
-        init, step = gpt.make_train_step(cfg, device="cuda")
+        init, step, _, _ = gpt.make_train_step(cfg, device="cuda")
         state = init(seed=0)
         loss, _ = gpt.loss_fn(state["params"], batch, cfg)
         loss.backward()
@@ -856,7 +881,7 @@ def nano_train_phase(n_experts: int = 0) -> None:
     weights = gpt.init_params(cfg, seed=0, device="cpu")
     losses = {}
     for device in ("cpu", "cuda"):
-        init, step = gpt.make_train_step(cfg, device=device)
+        init, step, _, _ = gpt.make_train_step(cfg, device=device)
         state = init(params=weights)
         batch = _train_batch(cfg, 8, 128, 7, device)
         before = dict(fa.launches)
@@ -878,6 +903,248 @@ def nano_train_phase(n_experts: int = 0) -> None:
         f"{NANO_TRAIN_TOL})")
     if not diff <= NANO_TRAIN_TOL:
         raise AssertionError(f"{what} f32 training: card and CPU disagree")
+
+
+# Parallel training (slice 9): two ranks on this one card over gloo
+# (NCCL refuses two ranks on one GPU). (a) f32 exactness at GPT-2-small
+# width, 2 layers, against the one-rank port on the card: the ranks sum
+# the same f32 products in another order (batch halves, tp partials), so
+# losses agree to ~1e-7 relative. Parameters: the median within 1e-3 lr
+# (tests/test_torch_train.py's bound); each one within 2 lr a step. Adam
+# moves a weight by about lr a step whatever its gradient's size, so a
+# gradient of ~1e-8 (an embedding row of a token the batch never holds:
+# 50,304 rows, 2,048 tokens) whose sign flips with the summation order
+# moves lr one way on one side and lr the other way on the other; PR 9's
+# first chip run saw 1.02 lr on `embed` after 3 steps, medians 3.7e-9.
+PAR_RANKS = 2
+PAR_EXACT_MESHES = ({"fsdp": 2}, {"tp": 2}, {"dp": 2})
+PAR_FULL_MESHES = ({"fsdp": 2}, {"tp": 2})
+PAR_LOSS_RTOL = 1e-5
+PAR_EXACT_B, PAR_EXACT_S = 8, 256
+
+
+def _par_cfg(n_layer: int, dtype: str):
+    import dataclasses
+
+    import torch
+
+    from ray_tpu_torch.models import gpt
+
+    return dataclasses.replace(gpt.CONFIGS["small"], n_layer=n_layer,
+                               dtype=getattr(torch, dtype), remat="dots",
+                               attn_backend="flash")
+
+
+def _rank_steps(axes, n_layer, dtype, B, S, warm, steps, gather):
+    """On each rank of the pool: ``make_train_step`` over ``axes``, the
+    seed-0 weights, ``warm`` steps, then ``steps`` steps timed with the
+    flash counts zeroed just before; returns the losses, this rank's
+    launches, step ms, peak memory, its groups' op counts and (rank 0,
+    with ``gather``) the gathered parameters."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel import create_mesh, gather_tree
+
+    cfg = _par_cfg(n_layer, dtype)
+    mesh = create_mesh(axes)
+    init, step, places, _ = gpt.make_train_step(cfg, mesh)
+    state = init(seed=0)
+    batch = _train_batch(cfg, B, S, 5, "cuda")
+    losses = []
+    for _ in range(warm):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches.update(dict.fromkeys(fa.launches, 0))
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    out = {"losses": losses, "launches": dict(fa.launches),
+           "step_ms": dt / steps * 1e3,
+           "peak": torch.cuda.max_memory_allocated(),
+           "ops": {"/".join(k): dict(g.stats)
+                   for k, g in mesh._groups.items()}}
+    if gather:
+        full = gather_tree(state["params"], places["params"])
+        if dist.get_rank() == 0:
+            out["params"] = {k: v.detach().float().cpu().numpy()
+                             for k, v in full.items()}
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rank_reshard(path: str, save: bool):
+    """(d): one f32 step at {fsdp: 2} saved as a sharded checkpoint
+    (``save``), or the checkpoint loaded onto {tp: 2} over other weights;
+    rank 0 returns the gathered parameters."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.parallel import create_mesh, gather_tree
+    from ray_tpu_torch.train import Checkpoint
+
+    cfg = _par_cfg(2, "float32")
+    mesh = create_mesh({"fsdp": 2} if save else {"tp": 2})
+    init, step, places, _ = gpt.make_train_step(cfg, mesh)
+    state = init(seed=0 if save else 1)
+    if save:
+        state, _ = step(state, _train_batch(cfg, 4, 128, 9, "cuda"))
+        Checkpoint.from_sharded_state(state["params"], path=path,
+                                      placements=places["params"])
+    else:
+        state["params"] = Checkpoint(path).load_sharded_state(
+            state["params"], placements=places["params"])
+    full = gather_tree(state["params"], places["params"])
+    out = {k: v.detach().cpu().numpy() for k, v in full.items()} \
+        if dist.get_rank() == 0 else None
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def parallel_train_phase(card: str) -> list:
+    """Sharded training at GPT-2-small width on two ranks sharing this
+    card through gloo (this process is the controller; both ranks are
+    processes of ``RankPool``). (a) 2 layers at f32, 3 steps at
+    {fsdp:2}, {tp:2}, {dp:2} against the one-rank port on the card;
+    (b) 12 layers, bf16, remat dots, flash, B=32, S=1024 at {fsdp:2}
+    and {tp:2}: 1 + 3 steps, the loss falling, K2/K3 24/12/12 a step on
+    EACH rank, tok/s, step ms and peak memory per rank (two ranks time-
+    sharing one card, every collective staged through host memory by
+    gloo: not a speed figure for sharded training across cards); (c) K2
+    and K3 at the ranks' shapes (B=16 at fsdp:2, H=6 at tp:2) held
+    against their plain versions and timed; (d) a sharded checkpoint
+    saved at {fsdp:2} and loaded onto {tp:2}, the gathered parameters
+    bit-equal. Returns the (c) records with (b)'s launches, summed over
+    both ranks."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch._private.ranks import RankPool
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pool = RankPool(PAR_RANKS, devices=("cuda:0",) * PAR_RANKS,
+                    backend="gloo")
+    try:
+        log(f"parallel: {PAR_RANKS} ranks on cuda:0 (gloo) started in "
+            f"{time.perf_counter() - t0:.3f} s")
+        # (a) exactness, f32, against one rank on the card
+        cfg = _par_cfg(2, "float32")
+        init, step, _, _ = gpt.make_train_step(cfg, device="cuda")
+        state = init(seed=0)
+        batch = _train_batch(cfg, PAR_EXACT_B, PAR_EXACT_S, 5, "cuda")
+        ref_losses = []
+        for _ in range(3):
+            state, m = step(state, batch)
+            ref_losses.append(float(m["loss"]))
+        ref = {k: v.detach().cpu().numpy()
+               for k, v in state["params"].items()}
+        del state
+        torch.cuda.empty_cache()
+        lr = gpt.ADAMW_DEFAULTS["lr"]
+        for axes in PAR_EXACT_MESHES:
+            res = pool.run(_rank_steps, axes, 2, "float32", PAR_EXACT_B,
+                           PAR_EXACT_S, 0, 3, True)
+            got = res[0]["losses"]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(got, ref_losses))
+            diffs = {k: np.abs(res[0]["params"][k] - ref[k])
+                     for k in ref}
+            worst = max(diffs, key=lambda k: diffs[k].max())
+            med = max(float(np.median(d)) for d in diffs.values())
+            log(f"parallel (a) {axes} f32, 2 layers, B={PAR_EXACT_B} "
+                f"S={PAR_EXACT_S}: losses {got} vs one rank {ref_losses}, "
+                f"max relative diff {rel:.3g} (tolerance {PAR_LOSS_RTOL});"
+                f" params max |diff| {diffs[worst].max():.3g} ({worst}; "
+                f"tolerance 2 lr a step = {2 * 3 * lr:.3g}), largest "
+                f"median {med:.3g} (tolerance {1e-3 * lr:.3g}); K2/K3 "
+                f"launches per rank "
+                f"{[r['launches'] for r in res]}")
+            if not rel <= PAR_LOSS_RTOL or diffs[worst].max() > 2 * 3 * lr \
+                    or med > 1e-3 * lr:
+                raise AssertionError(f"parallel (a) {axes}: the sharded "
+                                     f"f32 step disagrees with one rank")
+            if not all(all(r["launches"].values()) for r in res):
+                raise AssertionError(f"parallel (a) {axes}: a rank skipped "
+                                     f"a flash kernel")
+        # (b) full depth, bf16, bench.py's shape
+        counts = {}
+        steps = 3
+        L = gpt.CONFIGS["small"].n_layer
+        want = {"flash_attention_fwd": 2 * L * steps,
+                "flash_attention_bwd_dkdv": L * steps,
+                "flash_attention_bwd_dq": L * steps}
+        for axes in PAR_FULL_MESHES:
+            res = pool.run(_rank_steps, axes, L, "bfloat16", TRAIN_B,
+                           TRAIN_S, 1, steps, False)
+            losses = res[0]["losses"]
+            ms = max(r["step_ms"] for r in res)
+            log(f"parallel (b) {axes} GPT-2 small bf16 [{card}] (B={TRAIN_B}"
+                f", S={TRAIN_S}, remat=dots, flash; two ranks sharing ONE "
+                f"card through gloo's host staging, not a speed figure for "
+                f"sharded training): {TRAIN_B * TRAIN_S / ms * 1e3:.1f} "
+                f"tok/s, step {ms:.3f} ms, peak memory per rank "
+                f"{[round(r['peak'] / 2**30, 3) for r in res]} GiB; losses "
+                f"{[round(x, 4) for x in losses]}; launches per rank in "
+                f"{steps} steps {[r['launches'] for r in res]} (want {want})"
+                f"; collectives on rank 0 in all {res[0]['ops']}")
+            if not all(map(math.isfinite, losses)) or \
+                    not losses[-1] < losses[0]:
+                raise AssertionError(f"parallel (b) {axes}: loss not "
+                                     f"finite and falling: {losses}")
+            if any(r["launches"] != want for r in res):
+                raise AssertionError(f"parallel (b) {axes}: flash launches "
+                                     f"per rank {[r['launches'] for r in res]}"
+                                     f" != {want}")
+            counts[tuple(axes)] = {n: sum(r["launches"][n] for r in res)
+                                   for n in want}
+        # (d) resharding: fsdp:2 -> tp:2, bit-equal
+        path = tempfile.mkdtemp(prefix="rt-torch-reshard-")
+        try:
+            saved = pool.run(_rank_reshard, path, True)[0]
+            loaded = pool.run(_rank_reshard, path, False)[0]
+        finally:
+            shutil.rmtree(path, ignore_errors=True)
+        same = all(np.array_equal(saved[k], loaded[k]) for k in saved)
+        log(f"parallel (d) sharded checkpoint saved at {{fsdp: 2}}, loaded "
+            f"onto {{tp: 2}}: gathered parameters bit-equal: {same} "
+            f"({len(saved)} tensors)")
+        if not same:
+            raise AssertionError("parallel (d): resharded parameters differ")
+    finally:
+        pool.close()
+    # (c) K2/K3 at the ranks' shapes, in this process
+    records = []
+    for suffix, B, H, key in (("_b16", TRAIN_B // 2, 12, ("fsdp",)),
+                              ("_h6", TRAIN_B, 6, ("tp",))):
+        gen = torch.Generator(device="cuda").manual_seed(21)
+        qs, k, v, do = (torch.randn(B, TRAIN_S, H, 64, device="cuda",
+                                    generator=gen).to(torch.bfloat16)
+                        for _ in range(4))
+        qs = fa.scale_q(qs, 0.125)
+        errs = _flash_hold(f"rank shape B={B} H={H}", qs, k, v, do, 0.125,
+                           True)
+        for rec in _flash_time(qs, k, v, do, 0.125, errs, card, suffix):
+            base = rec["name"][:-len(suffix)]
+            rec["launches"] = counts[key][base]
+            records.append(rec)
+        del qs, k, v, do
+        torch.cuda.empty_cache()
+    return records
 
 
 def serve(params, cfg, reqs, *, device, attn_kernel=None, seeds=None,
@@ -2387,6 +2654,9 @@ def main() -> int:
         gpt.CONFIGS["small"], n_experts=MOE_EXPERTS, dtype=torch.float32))
     nano_train_phase(n_experts=NANO_MOE_EXPERTS)
     train_phase(card, n_experts=MOE_EXPERTS)
+
+    # ---- 7c. sharded training: two ranks on this card (gloo)
+    records += parallel_train_phase(card)
 
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {

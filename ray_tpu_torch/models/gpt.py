@@ -18,19 +18,40 @@ so the two can be held against each other on the same weights:
 
 Training (``gpt.py:344-559``): :func:`forward` with the remat policies,
 :func:`loss_fn` with the chunked cross-entropy, and
-:func:`make_train_step` (single card, ``torch.optim.AdamW``). Attention
+:func:`make_train_step` (``torch.optim.AdamW``) on one card or over a
+:class:`~ray_tpu_torch.parallel.mesh.Mesh` of ranks (below). Attention
 goes through :func:`_attention`: ``"flash"`` is the hand-written kernel
 pair of :mod:`ray_tpu_torch.ops.flash_attention`, ``"xla"`` the plain
-masked-softmax einsums. The training state is updated in place (the
+masked-softmax einsums, ``"ring"``/``"ulysses"`` the sequence-parallel
+attention of :mod:`ray_tpu_torch.ops.ring_attention` over the mesh's
+``cfg.sp_axis``. The training state is updated in place (the
 parameters and the optimizer's moments), where the reference returns a
 new pytree.
+
+**Sharded training.** The reference jits one step over a mesh and lets
+GSPMD place the work. The port runs one process per rank, each the
+same step over its shard (``torchrun``'s model):
+
+- storage follows the rules' placements (``LM_RULES`` by default, the
+  leaves' paths from :data:`PARAM_PATHS`): each rank keeps its shard
+  of every parameter and of its AdamW moments;
+- each step gathers the parameters, takes this rank's rows of the
+  global batch (``dp`` x ``fsdp``) and, under ``sp``, its sequence
+  chunk; under ``tp`` each rank computes its heads and its slice of the
+  FFN (Megatron: column-parallel ``wq/wk/wv/w1``, row-parallel
+  ``wo/w2`` whose f32 partials are summed by an all-reduce), so the
+  flash kernels run on every rank at ``[B/(dp*fsdp), S, H/tp, hd]``;
+- the gradients are summed over the ranks, reduce-scattered to each
+  rank's shard and averaged over the data ranks, and AdamW updates the
+  shards.
 
 ``n_experts > 0`` replaces every block's FFN by the Mixture-of-Experts
 FFN of :mod:`ray_tpu_torch.models.moe` (router, top-k gating with a
 static capacity, batched expert products), as the reference's
 ``_block`` does; :func:`forward` sums the blocks' load-balance terms and
-:func:`loss_fn` adds ``moe_aux_coef`` times that sum. Expert parallelism
-(the reference's ``ep_axis``) is not ported: the port has no mesh.
+:func:`loss_fn` adds ``moe_aux_coef`` times that sum. MoE trains on one
+rank only: expert parallelism (the reference's ``ep_axis``) and the
+pipeline (``pp_axis``) come with port slice 10.
 """
 from __future__ import annotations
 
@@ -74,7 +95,9 @@ class GPTConfig:
     dtype: torch.dtype = torch.bfloat16      # activation/matmul dtype
     param_dtype: torch.dtype = torch.float32  # master params
     remat: Any = "dots"              # none|dots|full (bool accepted)
-    attn_backend: str = "auto"       # auto | xla | flash
+    attn_backend: str = "auto"       # auto | xla | flash | ring | ulysses
+    sp_axis: Optional[str] = None    # mesh axis for ring/ulysses attention
+    pp_axis: Optional[str] = None    # pipeline axis: not ported (slice 10)
     n_experts: int = 0               # >0 → MoE FFN in every block
     expert_top_k: int = 2            # tokens routed to k experts
     capacity_factor: float = 1.25    # per-expert slots = cf*k*T/E
@@ -90,11 +113,6 @@ class GPTConfig:
             raise ValueError(
                 f"n_experts={self.n_experts}, expert_top_k="
                 f"{self.expert_top_k}: need 1 <= top_k <= n_experts")
-        if self.attn_backend in ("ring", "ulysses"):
-            raise NotImplementedError(
-                f"attn_backend={self.attn_backend!r} (sequence-parallel "
-                f"attention) is not ported yet: ROADMAP.md Queue 1, "
-                f"parallel/")
         if self.attn_backend not in ATTN_BACKENDS:
             raise ValueError(f"unknown attn_backend {self.attn_backend!r}")
         if _remat_policy(self.remat) not in REMAT_POLICIES:
@@ -115,7 +133,7 @@ class GPTConfig:
 
 
 REMAT_POLICIES = ("none", "dots", "full")
-ATTN_BACKENDS = ("auto", "xla", "flash")
+ATTN_BACKENDS = ("auto", "xla", "flash", "ring", "ulysses")
 
 
 def _remat_policy(remat) -> str:
@@ -210,19 +228,62 @@ def params_from_numpy(tree: Mapping, device: DeviceLike = None,
     dict of stacked tensors, ``[in, out]`` kernel layout kept; an MoE
     tree's ``router``/``w_up``/``w_down`` included."""
     dev = resolve_device(device)
-    blk = tree["block"]
+    return {name: torch.from_numpy(np.array(x, np.float32)).to(
+        device=dev, dtype=dtype) for name, x in params_flat(tree).items()}
 
-    def t(x):
-        return torch.from_numpy(np.array(x, np.float32)).to(
-            device=dev, dtype=dtype)
 
-    out = {"embed": t(tree["embed"]["kernel"]),
-           "pos_embed": t(tree["pos_embed"]),
-           "ln_f_scale": t(tree["ln_f_scale"])}
-    for name in block_names(blk):
-        leaf = blk[name]
-        out[name] = t(leaf["kernel"] if isinstance(leaf, Mapping) else leaf)
+#: Each weight's path in the reference's params pytree: what the
+#: sharding rules match (``ray_tpu/parallel/sharding.py:91``) and what
+#: orders the leaves of an npz checkpoint.
+PARAM_PATHS = {"embed": "embed/kernel", "pos_embed": "pos_embed",
+               "ln_f_scale": "ln_f_scale", "ln1_scale": "block/ln1_scale",
+               "ln2_scale": "block/ln2_scale",
+               **{n: f"block/{n}/kernel" for n in (
+                   "wq", "wk", "wv", "wo", "w1", "w2", "router", "w_up",
+                   "w_down")}}
+
+
+def params_tree(params: Mapping) -> Dict:
+    """The port's flat dict in the reference's nested layout (the same
+    leaf objects, at :data:`PARAM_PATHS`)."""
+    out: Dict = {}
+    for name, leaf in params.items():
+        *head, last = PARAM_PATHS[name].split("/")
+        node = out
+        for key in head:
+            node = node.setdefault(key, {})
+        node[last] = leaf
     return out
+
+
+def params_flat(tree: Mapping) -> Dict[str, Any]:
+    """The inverse of :func:`params_tree`: the reference's params tree's
+    leaves under the port's names (an MoE tree's router and experts
+    included)."""
+    out = {}
+    for name, path in PARAM_PATHS.items():
+        node = tree
+        for key in path.split("/"):
+            node = node.get(key) if isinstance(node, Mapping) else None
+        if node is not None:
+            out[name] = node
+    return out
+
+
+def param_shapes(cfg: GPTConfig) -> Dict[str, Tuple[int, ...]]:
+    """Every weight's full shape, as :func:`init_params` draws it."""
+    d, f, L = cfg.d_model, cfg.d_ff, cfg.n_layer
+    shapes = {"embed": (cfg.vocab_size, d), "pos_embed": (cfg.max_seq, d),
+              "ln1_scale": (L, d), "ln2_scale": (L, d),
+              **{n: (L, d, d) for n in ("wq", "wk", "wv", "wo")}}
+    if cfg.n_experts > 0:
+        E = cfg.n_experts
+        shapes.update(router=(L, d, E), w_up=(L, E, d, f),
+                      w_down=(L, E, f, d))
+    else:
+        shapes.update(w1=(L, d, f), w2=(L, f, d))
+    shapes["ln_f_scale"] = (d,)
+    return shapes
 
 
 def block_names(params: Mapping) -> Tuple[str, ...]:
@@ -310,13 +371,125 @@ def _resolve_attn_backend(cfg: GPTConfig, q: torch.Tensor) -> str:
     return "xla"
 
 
-def _attention(q, k, v, cfg: GPTConfig) -> torch.Tensor:
+@dataclasses.dataclass(frozen=True)
+class _Par:
+    """This rank's share of a sharded forward: the tensor-parallel group
+    (``None`` at tp=1) and the sequence-parallel group with this rank's
+    index along it (``None`` at sp=1, or off a mesh)."""
+
+    tp: Any = None
+    sp: Any = None
+    sp_axis: Optional[str] = None
+
+    @property
+    def pieces(self) -> bool:
+        """Whether a block holds collectives, so that remat must wrap
+        its pieces between them rather than the whole block."""
+        return self.tp is not None or self.sp is not None
+
+
+_SOLO = _Par()
+
+
+def _check(cfg: GPTConfig, mesh) -> None:
+    """Whether ``cfg`` runs on ``mesh`` (``gpt.py:381-423``'s checks):
+    dp/fsdp/tp/sp only; MoE and pp raise on more than one rank."""
+    sizes = mesh.shape
+    seq = cfg.attn_backend in ("ring", "ulysses")
+    if seq and (not cfg.sp_axis or cfg.sp_axis not in sizes):
+        raise ValueError(
+            f"attn_backend={cfg.attn_backend!r} needs a mesh with the sp "
+            f"axis {cfg.sp_axis!r}; pass mesh via make_train_step")
+    if mesh.size == 1:
+        return
+    if cfg.n_experts > 0:
+        raise NotImplementedError(
+            f"MoE (n_experts={cfg.n_experts}) on {mesh.size} ranks: the "
+            f"reference's capacity counts the global batch's tokens, so a "
+            f"per-rank router would drop other tokens; expert parallelism "
+            f"comes with port slice 10")
+    if (cfg.pp_axis and cfg.pp_axis in sizes) or \
+            sizes.get("pp", 1) > 1 or sizes.get("ep", 1) > 1:
+        raise NotImplementedError(
+            f"pipeline and expert axes ({sizes}) come with port slice 10")
+    tp = sizes.get("tp", 1)
+    if cfg.n_head % tp or cfg.d_ff % tp:
+        raise ValueError(f"n_head={cfg.n_head} / d_ff={cfg.d_ff} not "
+                         f"divisible by tp={tp}")
+    extra = [a for a, n in sizes.items() if n > 1 and a not in (
+        "dp", "fsdp", "tp") and not (seq and a == cfg.sp_axis)]
+    if extra:
+        raise ValueError(f"mesh axes {extra} shard nothing under "
+                         f"attn_backend={cfg.attn_backend!r} (an sp axis "
+                         f"needs ring or ulysses attention)")
+    sp_n = sizes.get(cfg.sp_axis, 1) if seq else 1
+    if cfg.attn_backend == "ulysses" and (cfg.n_head // tp) % sp_n:
+        raise ValueError(f"ulysses needs the {cfg.n_head // tp} heads of a "
+                         f"tp rank divisible by sp={sp_n}")
+
+
+def _par(cfg: GPTConfig, mesh) -> _Par:
+    """The groups ``cfg`` runs over on ``mesh`` (checked by
+    :func:`_check`)."""
+    if mesh is None:
+        return _SOLO
+    _check(cfg, mesh)
+    seq = cfg.attn_backend in ("ring", "ulysses")
+    sizes = mesh.shape
+    tp = sizes.get("tp", 1) if mesh.size > 1 else 1
+    sp = sizes.get(cfg.sp_axis, 1) if seq and mesh.size > 1 else 1
+    return _Par(tp=mesh.group("tp") if tp > 1 else None,
+                sp=mesh.group(cfg.sp_axis) if sp > 1 else None,
+                sp_axis=cfg.sp_axis if seq else None)
+
+
+def _attention(q, k, v, cfg: GPTConfig, par: _Par = _SOLO) -> torch.Tensor:
     """[B, S, H, hd] causal attention by the configured backend
     (``gpt.py:194``). ``flash`` on CUDA tensors launches the kernels or
-    raises."""
-    if _resolve_attn_backend(cfg, q) == "flash":
+    raises; on a mesh each rank runs it on its rows and heads, as the
+    reference's ``shard_map`` does. ``ring``/``ulysses`` run over the
+    sp group on this rank's sequence chunk."""
+    backend = _resolve_attn_backend(cfg, q)
+    if backend == "flash":
         return flash_attention(q, k, v, causal=True)
+    if backend in ("ring", "ulysses"):
+        if par.sp_axis is None:
+            raise ValueError(
+                f"attn_backend={backend!r} needs a mesh with the sp axis "
+                f"{cfg.sp_axis!r}; pass mesh via make_train_step")
+        from ..ops import ring_attention as ra
+
+        fn = ra.ring_attention if backend == "ring" else ra.ulysses_attention
+        return fn(q, k, v, group=par.sp, causal=True)
     return _attention_xla(q, k, v, cfg)
+
+
+class _CopyToTP(torch.autograd.Function):
+    """Identity forward; backward sums the gradient over the tp group in
+    f32 (Megatron's ``f``: the replicated input of column-parallel
+    products)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.allreduce(g.float()).to(g.dtype), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    """Sums the f32 partials of row-parallel products over the tp group;
+    identity backward (Megatron's ``g``)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return group.allreduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
 
 
 def _ffn(h: torch.Tensor, p: Params, cfg: GPTConfig, aux: bool = True,
@@ -337,7 +510,7 @@ def _ffn(h: torch.Tensor, p: Params, cfg: GPTConfig, aux: bool = True,
                    group), None
 
 
-def _block(x: torch.Tensor, p: Params, cfg: GPTConfig
+def _block(x: torch.Tensor, p: Params, cfg: GPTConfig, par: _Par = _SOLO
            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One transformer block → (x, aux) (``gpt.py:234``): ``aux`` is the
     MoE load-balance term, ``None`` for a dense FFN (the reference's 0)."""
@@ -347,10 +520,60 @@ def _block(x: torch.Tensor, p: Params, cfg: GPTConfig
     q = _mm(h, p["wq"], cfg.dtype).reshape(B, S, H, hd)
     k = _mm(h, p["wk"], cfg.dtype).reshape(B, S, H, hd)
     v = _mm(h, p["wv"], cfg.dtype).reshape(B, S, H, hd)
-    att = _attention(q, k, v, cfg).reshape(B, S, d)
+    att = _attention(q, k, v, cfg, par).reshape(B, S, d)
     x = x + _mm(att, p["wo"], cfg.dtype)
     y, aux = _ffn(_rmsnorm(x, p["ln2_scale"]), p, cfg)
     return x + y, aux
+
+
+def _qkv(x, ln, wq, wk, wv, cfg: GPTConfig, tp):
+    """Column-parallel q, k, v ``[B, S, H/tp, hd]`` of the normed x."""
+    h = _rmsnorm(x, ln)
+    if tp is not None:
+        h = _CopyToTP.apply(h, tp)
+    B, S, _ = x.shape
+    return tuple(_mm(h, w, cfg.dtype).reshape(B, S, -1, cfg.head_dim)
+                 for w in (wq, wk, wv))
+
+
+def _partial(a, w, cfg: GPTConfig, tp):
+    """A row-parallel product before its sum over tp: f32 of the
+    compute-dtype operands (:func:`_mm_row`'s cast point); :func:`_mm`
+    at tp=1."""
+    if tp is None:
+        return _mm(a, w, cfg.dtype)
+    return torch.matmul(a.to(cfg.dtype).float(), w.to(cfg.dtype).float())
+
+
+def _mlp_partial(x, ln, w1, w2, cfg: GPTConfig, tp):
+    h = _rmsnorm(x, ln)
+    if tp is not None:
+        h = _CopyToTP.apply(h, tp)
+    return _partial(_gelu(_mm(h, w1, cfg.dtype)), w2, cfg, tp)
+
+
+def _reduced(y, cfg: GPTConfig, tp):
+    return y if tp is None else _ReduceFromTP.apply(y, tp).to(cfg.dtype)
+
+
+def _block_pieces(x: torch.Tensor, p: Params, cfg: GPTConfig, par: _Par,
+                  policy: str) -> torch.Tensor:
+    """:func:`_block` (dense) for a rank whose block holds collectives
+    (tp all-reduces, ring or Ulysses exchanges): the remat policy wraps
+    the pieces between them, so a recompute never repeats a collective.
+    Flash attention is a piece of its own, recomputed under ``dots`` and
+    ``full`` as in the whole-block form."""
+    B, S, _ = x.shape
+    q, k, v = _remat(_qkv, policy, x, p["ln1_scale"], p["wq"], p["wk"],
+                     p["wv"], cfg, par.tp)
+    if par.sp_axis is None:
+        att = _remat(_attention, policy, q, k, v, cfg)
+    else:
+        att = _attention(q, k, v, cfg, par)
+    x = x + _reduced(_remat(_partial, policy, att.reshape(B, S, -1),
+                            p["wo"], cfg, par.tp), cfg, par.tp)
+    return x + _reduced(_remat(_mlp_partial, policy, x, p["ln2_scale"],
+                               p["w1"], p["w2"], cfg, par.tp), cfg, par.tp)
 
 
 # Matrix products: what ``jax.checkpoint_policies.checkpoint_dots`` keeps.
@@ -380,22 +603,36 @@ def _remat(fn: Callable, policy: str, *args):
                           create_selective_checkpoint_contexts, _save_dots))
 
 
-def forward(params: Params, tokens: torch.Tensor, cfg: GPTConfig, *,
-            return_aux: bool = False, final_hidden: bool = False):
+def forward(params: Params, tokens: torch.Tensor, cfg: GPTConfig,
+            mesh=None, *, return_aux: bool = False,
+            final_hidden: bool = False):
     """tokens [B, S] int → logits [B, S, vocab] float32
     (``gpt.py:344``). ``return_aux`` also returns ``{"moe_aux": the
     layers' load-balance terms summed}`` (0 for a dense model).
     ``final_hidden`` skips the vocab projection and returns the
     post-norm hidden states (the chunked loss projects per chunk
-    itself)."""
+    itself).
+
+    On a ``mesh`` of several ranks every rank calls this with its own
+    share, as :func:`make_train_step`'s step does: ``params`` in this
+    rank's compute layout (:func:`compute_params`), ``tokens`` its rows
+    of the batch and, under ring/ulysses attention, its chunk of the
+    sequence (chunk ``i`` of the sp axis starts at position ``i * S``);
+    the result is this rank's logits."""
+    par = _par(cfg, mesh)
     tokens = torch.as_tensor(tokens, device=params["embed"].device).long()
     S = tokens.shape[1]
+    start = par.sp.rank * S if par.sp is not None else 0
     x = params["embed"].to(cfg.dtype)[tokens]
-    x = x + params["pos_embed"][:S].to(cfg.dtype)[None]
+    x = x + params["pos_embed"][start:start + S].to(cfg.dtype)[None]
     policy = _remat_policy(cfg.remat)
     auxs = []
     for i in range(cfg.n_layer):
-        x, aux = _remat(_block, policy, x, layer_params(params, i), cfg)
+        if par.pieces:
+            x = _block_pieces(x, layer_params(params, i), cfg, par, policy)
+            continue
+        x, aux = _remat(_block, policy, x, layer_params(params, i), cfg,
+                        par)
         if aux is not None:
             auxs.append(aux)
     x = _rmsnorm(x, params["ln_f_scale"])
@@ -439,14 +676,30 @@ def _chunked_ce(x, embed, targets, cfg: GPTConfig) -> torch.Tensor:
     return total / (B * S)
 
 
-def loss_fn(params: Params, batch: Mapping, cfg: GPTConfig
+def _data_axes(mesh, cfg: GPTConfig) -> Tuple[str, ...]:
+    """The axes over which ranks see different tokens (rows over dp x
+    fsdp; sequence chunks over the sp axis of ring/ulysses)."""
+    axes = [a for a in ("dp", "fsdp") if mesh.shape.get(a, 1) > 1]
+    if cfg.attn_backend in ("ring", "ulysses") and \
+            mesh.shape.get(cfg.sp_axis, 1) > 1:
+        axes.append(cfg.sp_axis)
+    return tuple(axes)
+
+
+def loss_fn(params: Params, batch: Mapping, cfg: GPTConfig, mesh=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy (``gpt.py:476``). batch: ``tokens``
     [B, S+1], or ``tokens`` and ``targets`` [B, S]. Returns (loss,
     {"loss", "perplexity"}), the metrics detached. An MoE model adds
     ``moe_aux_coef`` times the load-balance term to the loss and reports
     the term as ``metrics["moe_aux"]`` (``gpt.py:492-494``); ``loss``
-    and ``perplexity`` stay the cross-entropy's."""
+    and ``perplexity`` stay the cross-entropy's.
+
+    On a ``mesh`` of several ranks ``batch`` is this rank's rows and
+    ``params`` its compute layout (see :func:`forward`); under ring or
+    ulysses attention the rank takes its chunk of the sequence itself.
+    The returned loss is this rank's mean (what its backward needs); the
+    metrics are the mean over every rank's tokens."""
     dev = params["embed"].device
     if "targets" in batch:
         tokens, targets = batch["tokens"], batch["targets"]
@@ -455,14 +708,24 @@ def loss_fn(params: Params, batch: Mapping, cfg: GPTConfig
     else:
         full = torch.as_tensor(batch["tokens"], device=dev)
         tokens, targets = full[:, :-1], full[:, 1:]
+    par = _par(cfg, mesh)
+    if par.sp is not None:
+        n, S = par.sp.world_size, tokens.shape[1]
+        if S % n:
+            raise ValueError(f"seq {S} not divisible by sp={n}")
+        tokens, targets = (t.chunk(n, dim=1)[par.sp.rank]
+                           for t in (tokens, targets))
     if cfg.loss_chunk:
-        x, aux = forward(params, tokens, cfg, return_aux=True,
+        x, aux = forward(params, tokens, cfg, mesh, return_aux=True,
                          final_hidden=True)
         loss = _chunked_ce(x, params["embed"], targets, cfg)
     else:
-        logits, aux = forward(params, tokens, cfg, return_aux=True)
+        logits, aux = forward(params, tokens, cfg, mesh, return_aux=True)
         loss = _ce_from_logits(logits, targets)
     done = loss.detach()
+    axes = _data_axes(mesh, cfg) if mesh is not None else ()
+    if axes:
+        done = mesh.group(axes).allreduce(done) / mesh.size_of(axes)
     metrics = {"loss": done, "perplexity": torch.exp(done)}
     if cfg.n_experts > 0:
         loss = loss + cfg.moe_aux_coef * aux["moe_aux"]
@@ -482,46 +745,141 @@ def _default_optimizer(params: Iterable[torch.Tensor]
     return torch.optim.AdamW(params, **ADAMW_DEFAULTS)
 
 
-def make_train_step(cfg: GPTConfig, optimizer: Optional[Callable[
-        [Iterable[torch.Tensor]], torch.optim.Optimizer]] = None, *,
-        device: DeviceLike = None):
-    """(init, step) for single-card training (``gpt.py:499``).
+def _tp_dim(name: str, ndim: int, tp: int) -> Optional[int]:
+    """The dim along which weight ``name`` is split into the tp ranks'
+    compute slices (``gpt_decode.shard_tensor``'s split: column-parallel
+    weights by output columns, row-parallel ones by input rows, dim 1
+    after the layer dim), or ``None`` for a weight every rank holds
+    whole."""
+    from .gpt_decode import _TP_COL, _TP_ROW  # that module imports this
+
+    if tp == 1:
+        return None
+    if name in _TP_COL:
+        return ndim - 1
+    return 1 if name in _TP_ROW else None
+
+
+def compute_params(full: Params, mesh) -> Params:
+    """This rank's compute layout of the full weights on ``mesh``: under
+    tp its column slice of ``wq/wk/wv/w1`` and row slice of ``wo/w2``
+    (views), every other weight whole."""
+    tp = mesh.shape.get("tp", 1) if mesh is not None else 1
+    if tp == 1:
+        return dict(full)
+    r = mesh.coords()["tp"]
+    out = {}
+    for name, t in full.items():
+        dim = _tp_dim(name, t.dim(), tp)
+        out[name] = t if dim is None else t.chunk(tp, dim=dim)[r]
+    return out
+
+
+def make_train_step(cfg: GPTConfig, mesh=None, optimizer: Optional[
+        Callable[[Iterable[torch.Tensor]], torch.optim.Optimizer]] = None,
+        *, rules=None, donate: bool = True, device: DeviceLike = None):
+    """``(init, step, state_placements, batch_placement)`` for training
+    on ``mesh`` (``gpt.py:499``); no mesh, or a one-rank mesh, trains on
+    one card (``device``, default the card).
 
     - ``init(seed=0, params=None)`` → ``{"params", "opt", "step"}``:
       f32 master parameters (seeded :func:`init_params`, or a copy of
-      ``params``, e.g. :func:`params_from_numpy`'s) and the optimizer
-      ``optimizer(params)`` builds (default ``torch.optim.AdamW`` with
-      :data:`ADAMW_DEFAULTS`).
-    - ``step(state, batch)`` → ``(state, {"loss", "perplexity"})``
-      (and ``"moe_aux"`` for an MoE model, as :func:`loss_fn`): one
-      forward/backward/update; parameters and optimizer state are
-      updated in place. The forward casts the master parameters to
-      ``cfg.dtype``.
+      ``params``, e.g. :func:`params_from_numpy`'s; every rank draws or
+      passes the same full weights and keeps its shard) and the optimizer
+      ``optimizer(params)`` builds over them (default
+      ``torch.optim.AdamW`` with :data:`ADAMW_DEFAULTS`).
+    - ``step(state, batch)`` → ``(state, {"loss", "perplexity"})`` (and
+      ``"moe_aux"`` for an MoE model): one forward/backward/update on
+      the GLOBAL batch, of which each rank takes its share; parameters
+      and optimizer state are updated in place (``donate`` is accepted
+      for the reference's signature: nothing is copied either way). The
+      metrics are the global batch's.
+    - ``state_placements`` is ``{"params", "opt", "step"}`` of
+      :class:`~ray_tpu_torch.parallel.sharding.Placement`s: each
+      parameter's placement under ``rules`` (default ``LM_RULES``), the
+      optimizer's moments following their parameter's; ``step``
+      replicated. ``batch_placement`` shards the batch rows over dp x
+      fsdp.
 
-    The mesh, sharding rules and donation of the reference are not
-    ported (ROADMAP.md Queue 1, ``parallel/``)."""
-    dev = resolve_device(device)
+    On several ranks every rank of ``mesh`` builds the step and calls
+    ``init`` and ``step`` with the same arguments (one process per rank;
+    see the module notes). MoE models and pipeline or expert axes raise
+    (port slice 10)."""
+    from ..parallel import mesh as pmesh
+    from ..parallel import sharding as shr
+
+    if mesh is None:
+        mesh = pmesh.single_device_mesh(device=resolve_device(device))
+    dev = mesh.device
     set_matmul_precision(dev)
     make_opt = optimizer or _default_optimizer
+    _check(cfg, mesh)
+    if rules is None:
+        rules = shr.LM_RULES
+    shapes = param_shapes(cfg)
+    placed = shr.tree_shardings(params_tree({
+        n: torch.empty(s, device="meta") for n, s in shapes.items()}),
+        mesh, rules)
+    placements = params_flat(placed)
+    state_placements = {"params": placements, "opt": placements,
+                        "step": shr.Placement(mesh, shr.P())}
+    batch_placement = shr.batch_sharding(mesh)
 
     def init(seed: int = 0, params: Optional[Params] = None) -> Dict:
         if params is None:
             params = init_params(cfg, seed, dev)
-        params = {k: t.detach().to(device=dev, dtype=cfg.param_dtype)
-                  .clone().requires_grad_(True) for k, t in params.items()}
-        return {"params": params, "opt": make_opt(list(params.values())),
+        local = {k: placements[k].shard(t.detach().to(
+            device=dev, dtype=cfg.param_dtype)).requires_grad_(True)
+            for k, t in params.items()}
+        return {"params": local, "opt": make_opt(list(local.values())),
                 "step": 0}
 
-    def step(state: Dict, batch: Mapping) -> Tuple[Dict, Dict]:
-        opt = state["opt"]
-        opt.zero_grad(set_to_none=True)
-        loss, metrics = loss_fn(state["params"], batch, cfg)
-        loss.backward()
-        opt.step()
-        return ({"params": state["params"], "opt": opt,
-                 "step": state["step"] + 1}, metrics)
+    if mesh.size == 1:
+        def step(state: Dict, batch: Mapping) -> Tuple[Dict, Dict]:
+            opt = state["opt"]
+            opt.zero_grad(set_to_none=True)
+            loss, metrics = loss_fn(state["params"], batch, cfg, mesh)
+            loss.backward()
+            opt.step()
+            return ({"params": state["params"], "opt": opt,
+                     "step": state["step"] + 1}, metrics)
 
-    return init, step
+        return init, step, state_placements, batch_placement
+
+    tp = mesh.shape.get("tp", 1)
+    tp_rank = mesh.coords().get("tp", 0)
+    rows = tuple(a for a in shr.BATCH_SPEC if a in mesh.shape)
+    n_avg = mesh.size_of(_data_axes(mesh, cfg))
+
+    def step(state: Dict, batch: Mapping) -> Tuple[Dict, Dict]:
+        opt, local = state["opt"], state["params"]
+        opt.zero_grad(set_to_none=True)
+        names = sorted(local)            # one collective order on every rank
+        with torch.no_grad():
+            full = {n: placements[n].gather(local[n]) for n in names}
+        comp = {n: t.detach().requires_grad_(True)
+                for n, t in compute_params(full, mesh).items()}
+        mine = {k: torch.as_tensor(v, device=dev).chunk(
+            mesh.size_of(rows))[mesh.index(rows)] for k, v in batch.items()}
+        loss, metrics = loss_fn(comp, mine, cfg, mesh)
+        loss.backward()
+        with torch.no_grad():
+            for n in names:
+                g = comp[n].grad
+                dim = _tp_dim(n, g.dim(), tp)
+                if dim is not None:        # this rank's slice, zero elsewhere
+                    whole = torch.zeros_like(full[n])
+                    whole.chunk(tp, dim=dim)[tp_rank].copy_(g)
+                    g = whole
+                elif tp > 1:               # every tp rank holds all of it
+                    g = g / tp
+                local[n].grad = placements[n].reduce(g) / n_avg
+            del full, comp
+        opt.step()
+        return ({"params": local, "opt": opt, "step": state["step"] + 1},
+                metrics)
+
+    return init, step, state_placements, batch_placement
 
 
 class GPT(nn.Module):

@@ -107,12 +107,14 @@ def test_uses_tanh_gelu():
 def test_device_and_config_guards():
     """No device means the card: without one the entry point raises
     rather than falling back to the CPU. MoE configs are accepted;
-    sequence-parallel attention backends are refused."""
+    sequence-parallel attention backends are accepted and refused
+    without a mesh that has their sp axis."""
     moe = dataclasses.replace(tgpt.CONFIGS["nano"], n_experts=4)
     assert (moe.n_experts, moe.expert_top_k) == (4, 2)
     for backend in ("ring", "ulysses"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            dataclasses.replace(tgpt.CONFIGS["nano"], attn_backend=backend)
+        cfg = dataclasses.replace(tgpt.CONFIGS["nano"], attn_backend=backend)
+        with pytest.raises(ValueError, match="needs a mesh with the sp"):
+            tgpt._attention(*(torch.zeros(1, 4, 2, 32),) * 3, cfg)
     if torch.cuda.is_available():
         pytest.skip("a card is visible: the no-card error path cannot "
                     "be exercised")

@@ -16,7 +16,10 @@ a fresh interpreter where ``jax`` and ``ml_dtypes`` are poisoned in
 suite's conftest imports JAX into the test process. The tp=2 engine's
 follower process is spawned afresh, without that block, so it reports
 the modules it imported over the group, after serving, and none of
-them may be ``jax``, ``ml_dtypes`` or ``ray_tpu``.
+them may be ``jax``, ``ml_dtypes`` or ``ray_tpu``. The same holds for a
+sharded training step: two rank processes of a ``RankPool``, spawned
+from a script whose controller holds the block, take a nano step on
+``{fsdp: 2}`` and on ``{tp: 2}`` and report their modules.
 """
 import ast
 import os
@@ -40,7 +43,10 @@ def test_no_jax_or_reference_imports_in_source():
              for f in fs if f.endswith(".py")]
     assert len(files) >= 10
     for must in ("_private/prng.py", "_private/tp.py", "serve/draft.py",
-                 "serve/handoff.py"):
+                 "serve/handoff.py", "_private/ranks.py", "parallel/mesh.py",
+                 "parallel/sharding.py", "collective/collective.py",
+                 "ops/ring_attention.py", "train/checkpoint.py",
+                 "train/session.py"):
         assert os.path.join(PKG, must) in files, must
     files.append(os.path.join(ROOT, "chip_smoke.py"))
     bad = []
@@ -125,7 +131,7 @@ finally:
 assert out.shape == (6,) and ho["imported"] == 1, (out, ho)
 assert ho["import_fallbacks"] == 0, ho
 tcfg = dataclasses.replace(cfg, attn_backend="flash", remat="dots")
-init, step = gpt.make_train_step(tcfg, device="cpu")
+init, step, _, _ = gpt.make_train_step(tcfg, device="cpu")
 state, metrics = step(init(seed=0), {"tokens": np.arange(
     2 * 17, dtype=np.int64).reshape(2, 17) % cfg.vocab_size})
 assert state["step"] == 1 and bool(torch.isfinite(metrics["loss"]))
@@ -139,7 +145,7 @@ try:
 finally:
     eng.shutdown()
 assert out.shape == (6,), out
-init, step = gpt.make_train_step(dataclasses.replace(tcfg, n_experts=4),
+init, step, _, _ = gpt.make_train_step(dataclasses.replace(tcfg, n_experts=4),
                                  device="cpu")
 state, metrics = step(init(seed=0), {"tokens": np.arange(
     2 * 17, dtype=np.int64).reshape(2, 17) % cfg.vocab_size})
@@ -174,3 +180,68 @@ def test_serves_with_jax_and_reference_blocked():
                          timeout=240)
     assert res.returncode == 0, res.stderr[-4000:]
     assert "ISOLATED-OK" in res.stdout
+
+
+_SHARDED = r"""
+import sys
+
+
+def rank_step(axes, backend):
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.parallel import create_mesh
+
+    cfg = dataclasses.replace(gpt.CONFIGS["nano"], attn_backend=backend)
+    mesh = create_mesh(axes, device="cpu")
+    init, step, _, _ = gpt.make_train_step(cfg, mesh)
+    state, m = step(init(seed=0), {"tokens": np.arange(
+        4 * 17, dtype=np.int64).reshape(4, 17) % cfg.vocab_size})
+    assert state["step"] == 1 and bool(torch.isfinite(m["loss"]))
+    return sorted({name.split(".")[0] for name in sys.modules})
+
+
+if __name__ == "__main__":
+    import importlib.abc
+
+    BLOCKED = ("jax", "jaxlib", "ml_dtypes", "ray_tpu")
+    sys.modules["jax"] = None
+    sys.modules["ml_dtypes"] = None
+
+    class _Refuse(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"blocked import of {name}")
+            return None
+
+    sys.meta_path.insert(0, _Refuse())
+    from ray_tpu_torch._private.ranks import RankPool
+
+    with RankPool(2, devices=("cpu",) * 2) as pool:
+        for axes, backend in (({"fsdp": 2}, "xla"), ({"tp": 2}, "flash")):
+            for modules in pool.run(rank_step, axes, backend):
+                assert "torch" in modules, modules
+                bad = sorted(set(modules) & set(BLOCKED))
+                assert not bad, bad
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED
+                    and sys.modules[m] is not None)
+    assert not leaked, leaked
+    print("SHARDED-ISOLATED-OK")
+"""
+
+
+def test_sharded_step_with_jax_and_reference_blocked(tmp_path):
+    """Two CPU ranks take a nano train step on {fsdp: 2} and on {tp: 2}
+    (flash, its plain versions here) from a controller that blocks JAX
+    and the reference; the ranks report the modules they imported."""
+    script = tmp_path / "sharded_child.py"
+    script.write_text(_SHARDED)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    res = subprocess.run([sys.executable, str(script)], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert "SHARDED-ISOLATED-OK" in res.stdout

@@ -310,7 +310,7 @@ def test_train_steps_match_jax(remat, attn_backend):
     mesh = create_mesh({"dp": 1}, devices=[jax.devices()[0]])
     jinit, jstep, _, _ = jgpt.make_train_step(jcfg, mesh)
     jstate = jinit(jax.random.PRNGKey(0))
-    init, step = tgpt.make_train_step(tcfg, device="cpu")
+    init, step, _, _ = tgpt.make_train_step(tcfg, device="cpu")
     state = init(params=tgpt.params_from_numpy(
         jax.tree_util.tree_map(np.array, jstate["params"]), "cpu"))
     toks = _tokens(4, 32, seed=31)

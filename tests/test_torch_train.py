@@ -125,7 +125,7 @@ def test_train_steps_match_jax(attn_backend):
     jinit, jstep, _, _ = jgpt.make_train_step(jcfg, mesh)
     jstate = jinit(jax.random.PRNGKey(0))
     np_tree = jax.tree_util.tree_map(np.array, jstate["params"])
-    init, step = tgpt.make_train_step(tcfg, device="cpu")
+    init, step, _, _ = tgpt.make_train_step(tcfg, device="cpu")
     state = init(params=tgpt.params_from_numpy(np_tree, "cpu"))
     toks = _tokens(4, 64, seed=11)
     jlosses, losses = [], []
@@ -186,7 +186,7 @@ def test_adamw_defaults_match_optax():
     assert d["betas"] == (sig["b1"].default, sig["b2"].default)
     assert d["eps"] == sig["eps"].default and sig["eps_root"].default == 0
     assert d["lr"] == 3e-4 and d["weight_decay"] == 0.01
-    init, _ = tgpt.make_train_step(tgpt.CONFIGS["nano"], device="cpu")
+    init, *_ = tgpt.make_train_step(tgpt.CONFIGS["nano"], device="cpu")
     opt = init()["opt"]
     assert opt.defaults["lr"] == d["lr"] and not opt.defaults["amsgrad"]
     assert opt.defaults["weight_decay"] == d["weight_decay"]
@@ -266,9 +266,12 @@ def test_auto_backend_on_cuda_tensors(dtype, hd, want):
 
 def test_config_guards():
     nano = tgpt.CONFIGS["nano"]
-    for backend in ("ring", "ulysses"):
-        with pytest.raises(NotImplementedError, match="Queue 1, parallel/"):
-            dataclasses.replace(nano, attn_backend=backend)
+    toks = torch.zeros(1, 8, dtype=torch.long)
+    params = tgpt.init_params(nano, device="cpu")
+    for backend in ("ring", "ulysses"):   # sequence parallel: needs a mesh
+        cfg = dataclasses.replace(nano, attn_backend=backend, sp_axis="sp")
+        with pytest.raises(ValueError, match="needs a mesh with the sp"):
+            tgpt.forward(params, toks, cfg)
     with pytest.raises(ValueError):
         dataclasses.replace(nano, attn_backend="pallas")
     with pytest.raises(ValueError):
