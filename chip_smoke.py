@@ -118,6 +118,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
    rank, tok/s, step ms and peak memory per rank, not a speed figure),
    a sharded checkpoint saved at {fsdp:2} and loaded at {tp:2}
    bit-equal; then K2/K3 at the ranks' shapes (B=16, H=6) against their
+   plain versions, timed;
+9. pipeline and expert parallelism (``pipeline_ep_phase``) on the same
+   two ranks: 2 layers at f32 on {pp:2} at 2 and 4 microbatches, and
+   with 8 experts (top-2, ``moe_aux_coef=1.0``, capacity factors 1.25
+   and 0.5) on {ep:2} and {dp:2}, against one rank on the card (losses
+   within ``PP_EP_LOSS_RTOL``); 12 layers bf16 at bench.py's shape on
+   {pp:2} at 4 microbatches (K2/K3 48/24/24 a step on each stage) and
+   {ep:2} with 8 experts (24/12/12 a step on each rank), the loss
+   falling; a multislice step of two one-rank slices whose checksums
+   agree; then K2/K3 at the microbatch shape (B=8, H=12) against their
    plain versions, timed.
 
 The line before the last is the per-kernel JSON record; the last line is
@@ -923,7 +933,7 @@ PAR_LOSS_RTOL = 1e-5
 PAR_EXACT_B, PAR_EXACT_S = 8, 256
 
 
-def _par_cfg(n_layer: int, dtype: str):
+def _par_cfg(n_layer: int, dtype: str, cfg_kw=None):
     import dataclasses
 
     import torch
@@ -932,15 +942,53 @@ def _par_cfg(n_layer: int, dtype: str):
 
     return dataclasses.replace(gpt.CONFIGS["small"], n_layer=n_layer,
                                dtype=getattr(torch, dtype), remat="dots",
-                               attn_backend="flash")
+                               attn_backend="flash", **(cfg_kw or {}))
 
 
-def _rank_steps(axes, n_layer, dtype, B, S, warm, steps, gather):
+# Rank 0's one-rank references for the exactness checks, by name. They
+# stay in the rank process on the card, so a check moves a few scalars
+# to the controller, not the weights.
+_REFERENCES: dict = {}
+
+
+def _rank_reference(name, cfg_kw=None):
+    """On rank 0 (the other rank idles): 3 f32 steps of the 2-layer model
+    on one rank on the card (no mesh) from the seed-0 weights, at
+    ``PAR_EXACT_B`` x ``PAR_EXACT_S``; keeps its parameters as
+    ``_REFERENCES[name]`` and returns (losses, moe_aux terms)."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import gpt
+
+    if dist.get_rank() != 0:
+        return None
+    _REFERENCES.clear()
+    cfg = _par_cfg(2, "float32", cfg_kw)
+    init, step, _, _ = gpt.make_train_step(cfg, device="cuda")
+    state = init(seed=0)
+    batch = _train_batch(cfg, PAR_EXACT_B, PAR_EXACT_S, 5, "cuda")
+    losses, auxs = [], []
+    for _ in range(3):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        auxs.append(float(m.get("moe_aux", 0.0)))
+    _REFERENCES[name] = {k: v.detach() for k, v in state["params"].items()}
+    del state
+    torch.cuda.empty_cache()
+    return losses, auxs
+
+
+def _rank_steps(axes, n_layer, dtype, B, S, warm, steps, reference=None,
+                cfg_kw=None):
     """On each rank of the pool: ``make_train_step`` over ``axes``, the
     seed-0 weights, ``warm`` steps, then ``steps`` steps timed with the
-    flash counts zeroed just before; returns the losses, this rank's
-    launches, step ms, peak memory, its groups' op counts and (rank 0,
-    with ``gather``) the gathered parameters."""
+    flash counts zeroed just before; returns the losses (and an MoE
+    model's ``moe_aux`` terms), this rank's launches, step ms, peak
+    memory, its groups' op counts and (rank 0, with ``reference``) each
+    gathered parameter's max and median |diff| from
+    ``_REFERENCES[reference]``. ``cfg_kw`` changes the config (a
+    pipeline, an MoE model)."""
     import torch
     import torch.distributed as dist
 
@@ -948,15 +996,20 @@ def _rank_steps(axes, n_layer, dtype, B, S, warm, steps, gather):
     from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.parallel import create_mesh, gather_tree
 
-    cfg = _par_cfg(n_layer, dtype)
+    t_init = time.perf_counter()
+    cfg = _par_cfg(n_layer, dtype, cfg_kw)
     mesh = create_mesh(axes)
     init, step, places, _ = gpt.make_train_step(cfg, mesh)
     state = init(seed=0)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t_init
     batch = _train_batch(cfg, B, S, 5, "cuda")
-    losses = []
+    losses, auxs = [], []
+    t_steps = time.perf_counter()
     for _ in range(warm):
         state, m = step(state, batch)
         losses.append(float(m["loss"]))
+        auxs.append(float(m.get("moe_aux", 0.0)))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.launches.update(dict.fromkeys(fa.launches, 0))
@@ -964,18 +1017,28 @@ def _rank_steps(axes, n_layer, dtype, B, S, warm, steps, gather):
     for _ in range(steps):
         state, m = step(state, batch)
         losses.append(float(m["loss"]))
+        auxs.append(float(m.get("moe_aux", 0.0)))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    out = {"losses": losses, "launches": dict(fa.launches),
+    out = {"losses": losses, "moe_aux": auxs, "launches": dict(fa.launches),
            "step_ms": dt / steps * 1e3,
            "peak": torch.cuda.max_memory_allocated(),
            "ops": {"/".join(k): dict(g.stats)
                    for k, g in mesh._groups.items()}}
-    if gather:
+    t_gather = time.perf_counter()
+    if reference:
         full = gather_tree(state["params"], places["params"])
         if dist.get_rank() == 0:
-            out["params"] = {k: v.detach().float().cpu().numpy()
-                             for k, v in full.items()}
+            ref = _REFERENCES[reference]
+            diffs = {k: (full[k].detach().float() - ref[k].float()).abs()
+                     for k in ref}
+            out["param_diff"] = {k: (float(d.max()), float(d.median()))
+                                 for k, d in diffs.items()}
+            del diffs
+        del full
+    out["seconds"] = {"init": round(t_init, 3),
+                      "steps": round(t_gather - t_steps, 3),
+                      "gather": round(time.perf_counter() - t_gather, 3)}
     del state
     torch.cuda.empty_cache()
     return out
@@ -983,8 +1046,10 @@ def _rank_steps(axes, n_layer, dtype, B, S, warm, steps, gather):
 
 def _rank_reshard(path: str, save: bool):
     """(d): one f32 step at {fsdp: 2} saved as a sharded checkpoint
-    (``save``), or the checkpoint loaded onto {tp: 2} over other weights;
-    rank 0 returns the gathered parameters."""
+    (``save``; rank 0 keeps the gathered parameters), or the checkpoint
+    loaded onto {tp: 2} over other weights; rank 0 returns how many
+    gathered parameters are bit-equal to the saved ones, and of how
+    many."""
     import torch
     import torch.distributed as dist
 
@@ -1004,8 +1069,13 @@ def _rank_reshard(path: str, save: bool):
         state["params"] = Checkpoint(path).load_sharded_state(
             state["params"], placements=places["params"])
     full = gather_tree(state["params"], places["params"])
-    out = {k: v.detach().cpu().numpy() for k, v in full.items()} \
-        if dist.get_rank() == 0 else None
+    out = None
+    if dist.get_rank() == 0 and save:
+        _REFERENCES["reshard"] = {k: v.detach() for k, v in full.items()}
+    elif dist.get_rank() == 0:
+        saved = _REFERENCES.pop("reshard")
+        out = (sum(torch.equal(full[k], saved[k]) for k in saved),
+               len(saved))
     del state
     torch.cuda.empty_cache()
     return out
@@ -1029,7 +1099,6 @@ def parallel_train_phase(card: str) -> list:
     import shutil
     import tempfile
 
-    import numpy as np
     import torch
 
     from ray_tpu_torch._private.ranks import RankPool
@@ -1044,43 +1113,13 @@ def parallel_train_phase(card: str) -> list:
         log(f"parallel: {PAR_RANKS} ranks on cuda:0 (gloo) started in "
             f"{time.perf_counter() - t0:.3f} s")
         # (a) exactness, f32, against one rank on the card
-        cfg = _par_cfg(2, "float32")
-        init, step, _, _ = gpt.make_train_step(cfg, device="cuda")
-        state = init(seed=0)
-        batch = _train_batch(cfg, PAR_EXACT_B, PAR_EXACT_S, 5, "cuda")
-        ref_losses = []
-        for _ in range(3):
-            state, m = step(state, batch)
-            ref_losses.append(float(m["loss"]))
-        ref = {k: v.detach().cpu().numpy()
-               for k, v in state["params"].items()}
-        del state
-        torch.cuda.empty_cache()
-        lr = gpt.ADAMW_DEFAULTS["lr"]
+        ref = pool.run(_rank_reference, "dense")[0]
         for axes in PAR_EXACT_MESHES:
             res = pool.run(_rank_steps, axes, 2, "float32", PAR_EXACT_B,
-                           PAR_EXACT_S, 0, 3, True)
-            got = res[0]["losses"]
-            rel = max(abs(a - b) / abs(b) for a, b in zip(got, ref_losses))
-            diffs = {k: np.abs(res[0]["params"][k] - ref[k])
-                     for k in ref}
-            worst = max(diffs, key=lambda k: diffs[k].max())
-            med = max(float(np.median(d)) for d in diffs.values())
-            log(f"parallel (a) {axes} f32, 2 layers, B={PAR_EXACT_B} "
-                f"S={PAR_EXACT_S}: losses {got} vs one rank {ref_losses}, "
-                f"max relative diff {rel:.3g} (tolerance {PAR_LOSS_RTOL});"
-                f" params max |diff| {diffs[worst].max():.3g} ({worst}; "
-                f"tolerance 2 lr a step = {2 * 3 * lr:.3g}), largest "
-                f"median {med:.3g} (tolerance {1e-3 * lr:.3g}); K2/K3 "
-                f"launches per rank "
-                f"{[r['launches'] for r in res]}")
-            if not rel <= PAR_LOSS_RTOL or diffs[worst].max() > 2 * 3 * lr \
-                    or med > 1e-3 * lr:
-                raise AssertionError(f"parallel (a) {axes}: the sharded "
-                                     f"f32 step disagrees with one rank")
-            if not all(all(r["launches"].values()) for r in res):
-                raise AssertionError(f"parallel (a) {axes}: a rank skipped "
-                                     f"a flash kernel")
+                           PAR_EXACT_S, 0, 3, "dense")
+            _hold_to_one(f"parallel (a) {axes} f32, 2 layers, B="
+                         f"{PAR_EXACT_B} S={PAR_EXACT_S}", res, ref,
+                         PAR_LOSS_RTOL)
         # (b) full depth, bf16, bench.py's shape
         counts = {}
         steps = 3
@@ -1090,7 +1129,7 @@ def parallel_train_phase(card: str) -> list:
                 "flash_attention_bwd_dq": L * steps}
         for axes in PAR_FULL_MESHES:
             res = pool.run(_rank_steps, axes, L, "bfloat16", TRAIN_B,
-                           TRAIN_S, 1, steps, False)
+                           TRAIN_S, 1, steps)
             losses = res[0]["losses"]
             ms = max(r["step_ms"] for r in res)
             log(f"parallel (b) {axes} GPT-2 small bf16 [{card}] (B={TRAIN_B}"
@@ -1115,15 +1154,14 @@ def parallel_train_phase(card: str) -> list:
         # (d) resharding: fsdp:2 -> tp:2, bit-equal
         path = tempfile.mkdtemp(prefix="rt-torch-reshard-")
         try:
-            saved = pool.run(_rank_reshard, path, True)[0]
-            loaded = pool.run(_rank_reshard, path, False)[0]
+            pool.run(_rank_reshard, path, True)
+            equal, n = pool.run(_rank_reshard, path, False)[0]
         finally:
             shutil.rmtree(path, ignore_errors=True)
-        same = all(np.array_equal(saved[k], loaded[k]) for k in saved)
         log(f"parallel (d) sharded checkpoint saved at {{fsdp: 2}}, loaded "
-            f"onto {{tp: 2}}: gathered parameters bit-equal: {same} "
-            f"({len(saved)} tensors)")
-        if not same:
+            f"onto {{tp: 2}}: gathered parameters bit-equal: {equal} of {n} "
+            f"tensors")
+        if equal != n:
             raise AssertionError("parallel (d): resharded parameters differ")
     finally:
         pool.close()
@@ -1144,6 +1182,197 @@ def parallel_train_phase(card: str) -> list:
             records.append(rec)
         del qs, k, v, do
         torch.cuda.empty_cache()
+    return records
+
+
+# Pipeline and expert parallelism (slice 10), two ranks on this card over
+# gloo as in parallel_train_phase. (a) f32 exactness at GPT-2-small width
+# with 2 layers: a pipeline step sums the same f32 products per
+# microbatch; an MoE step on {ep:2} computes every row as one rank does
+# and sums two experts' gated outputs, exact in f32; on {dp:2} each rank
+# routes its half of the batch against the GLOBAL capacity and slot
+# order, which only a changed route would break (a flipped route moves
+# the loss by far more than 1e-6 relative). Parameters within PR 9's
+# bound (2 lr a step, medians 1e-3 lr).
+PP_EP_LOSS_RTOL = 1e-6
+# moe_aux after the first step: the weights of the two runs differ by
+# AdamW's lr-sized moves on near-zero gradients (see PR 9's bound above),
+# and a token whose top-1 probabilities are that close to a tie changes
+# its top-1 expert; one such flip moves the term by E * (p_a - p_b) / T
+# (T = 2048 here). PR 10's first chip run: {dp:2} at capacity factor 0.5
+# 2.43e-6 relative at step 2 (loss 9e-8), step 1 exact.
+MOE_AUX_DRIFT_RTOL = 1e-4
+PP_EXACT_MICROBATCHES = (2, 4)
+MOE_EXACT_MESHES = ({"ep": 2}, {"dp": 2})
+MOE_EXACT_FACTORS = (1.25, 0.5)
+PP_FULL_MICROBATCHES = 4
+
+
+def _hold_to_one(label, res, ref, loss_rtol, moe=False) -> None:
+    """(a): every rank's losses (and the first step's ``moe_aux``) within
+    ``loss_rtol`` relative of one rank's on the card (``ref``: losses,
+    moe_aux terms, from :func:`_rank_reference`), later ``moe_aux`` terms
+    within ``MOE_AUX_DRIFT_RTOL``, every gathered parameter within 2 lr a
+    step and its median within 1e-3 lr (rank 0's ``param_diff``), and
+    every flash kernel launched on every rank."""
+    from ray_tpu_torch.models import gpt
+
+    lr = gpt.ADAMW_DEFAULTS["lr"]
+    ref_losses, ref_auxs = ref
+    rel = max(abs(a - b) / abs(b) for r in res
+              for a, b in zip(r["losses"], ref_losses))
+    drift = 0.0
+    if moe:
+        rel = max([rel] + [abs(r["moe_aux"][0] - ref_auxs[0]) /
+                           abs(ref_auxs[0]) for r in res])
+        drift = max(abs(a - b) / abs(b) for r in res
+                    for a, b in zip(r["moe_aux"], ref_auxs))
+    diffs = res[0]["param_diff"]
+    worst = max(diffs, key=lambda k: diffs[k][0])
+    med = max(m for _, m in diffs.values())
+    log(f"{label}: losses {res[0]['losses']} vs one rank {ref_losses}"
+        + (f", moe_aux {res[0]['moe_aux']} vs {ref_auxs}" if moe else "") +
+        f"; max relative diff {rel:.3g} (tolerance {loss_rtol}"
+        + (f"; later moe_aux {drift:.3g}, tolerance {MOE_AUX_DRIFT_RTOL}"
+           if moe else "") +
+        f"); params max |diff| {diffs[worst][0]:.3g} ({worst}; tolerance 2 "
+        f"lr a step = {2 * 3 * lr:.3g}), largest median {med:.3g} "
+        f"(tolerance {1e-3 * lr:.3g}); K2/K3 launches per rank "
+        f"{[r['launches'] for r in res]}; rank 0's seconds "
+        f"{res[0]['seconds']}")
+    if not rel <= loss_rtol or not drift <= MOE_AUX_DRIFT_RTOL \
+            or diffs[worst][0] > 2 * 3 * lr or med > 1e-3 * lr:
+        raise AssertionError(f"{label}: the f32 step disagrees with one "
+                             f"rank")
+    if not all(all(r["launches"].values()) for r in res):
+        raise AssertionError(f"{label}: a rank skipped a flash kernel")
+
+
+def pipeline_ep_phase(card: str) -> list:
+    """Pipeline and expert parallelism on two ranks sharing this card
+    through gloo (``RankPool``, as ``parallel_train_phase``). (a) f32, 2
+    layers, GPT-2-small width, B=8, S=256, 3 steps against one rank on
+    the card: {pp:2} at 2 and 4 microbatches; 8 experts, top-2,
+    ``moe_aux_coef=1.0`` at capacity factors 1.25 and 0.5 on {ep:2} and
+    {dp:2} (the global-capacity case). (b) GPT-2 small, 12 layers, bf16,
+    remat dots, flash, B=32, S=1024, one warm step and 3 more: {pp:2} at
+    4 microbatches (K2/K3 48/24/24 a step on EACH stage: 6 layers x 4
+    microbatches, forward and remat recompute) and {ep:2} with 8 experts
+    (24/12/12 a step on each rank: every ep rank runs every layer on the
+    whole batch); the loss falling, step ms, tok/s and peak memory per
+    rank (two ranks time-sharing one card: no speed figure for
+    pipelining). (d) multislice: two slices of one rank each, every
+    slice's checksum equal. Then (c) K2/K3 at the microbatch shape
+    (B=8, H=12) held against their plain versions and timed; returns
+    their records with (b)'s {pp:2} launches summed over both ranks."""
+    import torch
+
+    from ray_tpu_torch._private.ranks import RankPool
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel.multislice import slice_rank
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pool = RankPool(PAR_RANKS, devices=("cuda:0",) * PAR_RANKS,
+                    backend="gloo")
+    try:
+        log(f"pipeline/ep: {PAR_RANKS} ranks on cuda:0 (gloo) started in "
+            f"{time.perf_counter() - t0:.3f} s")
+        # (b) full depth, bf16, bench.py's shape (first: a fault at full
+        # width shows before the exactness cases' minutes)
+        steps, L = 3, gpt.CONFIGS["small"].n_layer
+        M = PP_FULL_MICROBATCHES
+        full = (({"pp": 2}, {"pp_axis": "pp", "num_microbatches": M},
+                 {"flash_attention_fwd": 2 * L // 2 * M * steps,
+                  "flash_attention_bwd_dkdv": L // 2 * M * steps,
+                  "flash_attention_bwd_dq": L // 2 * M * steps}),
+                ({"ep": 2}, {"n_experts": MOE_EXPERTS},
+                 {"flash_attention_fwd": 2 * L * steps,
+                  "flash_attention_bwd_dkdv": L * steps,
+                  "flash_attention_bwd_dq": L * steps}))
+        counts = {}
+        for axes, kw, want in full:
+            res = pool.run(_rank_steps, axes, L, "bfloat16", TRAIN_B,
+                           TRAIN_S, 1, steps, None, kw)
+            losses = res[0]["losses"]
+            ms = max(r["step_ms"] for r in res)
+            log(f"pipeline/ep (b) {axes} {kw} GPT-2 small bf16 [{card}] ["
+                f"{time.perf_counter() - t0:.1f} s into the phase] "
+                f"(B={TRAIN_B}, S={TRAIN_S}, remat=dots, flash; two ranks "
+                f"sharing ONE card through gloo's host staging, not a speed "
+                f"figure): {TRAIN_B * TRAIN_S / ms * 1e3:.1f} tok/s, step "
+                f"{ms:.3f} ms, peak memory per rank "
+                f"{[round(r['peak'] / 2**30, 3) for r in res]} GiB; losses "
+                f"{[round(x, 4) for x in losses]}"
+                + (f", moe_aux {[round(x, 4) for x in res[0]['moe_aux']]}"
+                   if "n_experts" in kw else "") +
+                f"; K2/K3 launches per rank in {steps} steps "
+                f"{[r['launches'] for r in res]} (predicted {want} on each "
+                f"rank); collectives on rank 0 in all {res[0]['ops']}; rank "
+                f"0's seconds {res[0]['seconds']}")
+            if not all(map(math.isfinite, losses)) or \
+                    not losses[-1] < losses[0]:
+                raise AssertionError(f"pipeline/ep (b) {axes}: loss not "
+                                     f"finite and falling: {losses}")
+            if "n_experts" in kw and not all(
+                    math.isfinite(a) and a > 0 for a in res[0]["moe_aux"]):
+                raise AssertionError(f"pipeline/ep (b) {axes}: moe_aux "
+                                     f"{res[0]['moe_aux']}")
+            if any(r["launches"] != want for r in res):
+                raise AssertionError(f"pipeline/ep (b) {axes}: flash "
+                                     f"launches per rank "
+                                     f"{[r['launches'] for r in res]} != "
+                                     f"{want}")
+            counts[tuple(axes)] = {n: sum(r["launches"][n] for r in res)
+                                   for n in want}
+        # (a) exactness, f32, against one rank on the card
+        ref = pool.run(_rank_reference, "dense")[0]
+        for m in PP_EXACT_MICROBATCHES:
+            kw = {"pp_axis": "pp", "num_microbatches": m}
+            res = pool.run(_rank_steps, {"pp": 2}, 2, "float32",
+                           PAR_EXACT_B, PAR_EXACT_S, 0, 3, "dense", kw)
+            at = time.perf_counter() - t0
+            _hold_to_one(f"pipeline/ep (a) {{pp: 2}} M={m} f32, 2 layers, "
+                         f"B={PAR_EXACT_B} S={PAR_EXACT_S} [{at:.1f} s into "
+                         f"the phase]", res, ref, PP_EP_LOSS_RTOL)
+        for cf in MOE_EXACT_FACTORS:
+            kw = {"n_experts": MOE_EXPERTS, "capacity_factor": cf,
+                  "moe_aux_coef": 1.0}
+            ref = pool.run(_rank_reference, f"moe{cf}", kw)[0]
+            for axes in MOE_EXACT_MESHES:
+                res = pool.run(_rank_steps, axes, 2, "float32", PAR_EXACT_B,
+                               PAR_EXACT_S, 0, 3, f"moe{cf}", kw)
+                _hold_to_one(f"pipeline/ep (a) {axes} MoE {MOE_EXPERTS} "
+                             f"experts top-2 capacity factor {cf} f32, 2 "
+                             f"layers [{time.perf_counter() - t0:.1f} s into "
+                             f"the phase]", res, ref, PP_EP_LOSS_RTOL,
+                             moe=True)
+        # (d) multislice: two slices of one rank each
+        reports = pool.run(slice_rank, 2, 1, "cuda:0")
+        log(f"pipeline/ep (d) [{time.perf_counter() - t0:.1f} s into the "
+            f"phase] multislice, 2 slices x 1 rank on cuda:0 "
+            f"(nano, one SGD step, gradients averaged across slices over "
+            f"gloo on host tensors): {reports}")
+        if not all(r["agree"] for r in reports) or \
+                len({r["checksum"] for r in reports}) != 1:
+            raise AssertionError(f"multislice: checksums differ: {reports}")
+    finally:
+        pool.close()
+    # (c) K2/K3 at the pipeline's microbatch shape, in this process
+    B = TRAIN_B // PP_FULL_MICROBATCHES
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    qs, k, v, do = (torch.randn(B, TRAIN_S, 12, 64, device="cuda",
+                                generator=gen).to(torch.bfloat16)
+                    for _ in range(4))
+    qs = fa.scale_q(qs, 0.125)
+    errs = _flash_hold(f"microbatch shape B={B}", qs, k, v, do, 0.125, True)
+    records = []
+    for rec in _flash_time(qs, k, v, do, 0.125, errs, card, f"_b{B}"):
+        rec["launches"] = counts[("pp",)][rec["name"][:-len(f"_b{B}")]]
+        records.append(rec)
+    del qs, k, v, do
+    torch.cuda.empty_cache()
     return records
 
 
@@ -2657,6 +2886,9 @@ def main() -> int:
 
     # ---- 7c. sharded training: two ranks on this card (gloo)
     records += parallel_train_phase(card)
+
+    # ---- 7d. pipeline, expert parallelism, multislice: two ranks (gloo)
+    records += pipeline_ep_phase(card)
 
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {

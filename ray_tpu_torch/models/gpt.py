@@ -45,13 +45,28 @@ same step over its shard (``torchrun``'s model):
   rank's shard and averaged over the data ranks, and AdamW updates the
   shards.
 
+**Pipeline** (``cfg.pp_axis`` on the mesh; ``gpt.py:376-421``): each
+rank stores and runs only its stage's layers (``PP_LM_RULES``), through
+the GPipe schedule of :mod:`ray_tpu_torch.parallel.pipeline` with
+``cfg.num_microbatches`` microbatches (default ``2 * pp``). Inside a
+stage the block is the remat'ed :func:`_block` (pp alone, with dp or
+fsdp rows), :func:`_block_pp_tp` (Megatron over tp) or
+:func:`_block_pp_sp` (ring attention over sp), as in the reference.
+Stage 0 embeds; only the last stage runs the final norm, the tied vocab
+projection and the loss, and broadcasts the metrics; every gradient
+outside the blocks is then summed over the stages (``embed``: stage 0's
+input part plus the last stage's head part).
+
 ``n_experts > 0`` replaces every block's FFN by the Mixture-of-Experts
 FFN of :mod:`ray_tpu_torch.models.moe` (router, top-k gating with a
 static capacity, batched expert products), as the reference's
 ``_block`` does; :func:`forward` sums the blocks' load-balance terms and
-:func:`loss_fn` adds ``moe_aux_coef`` times that sum. MoE trains on one
-rank only: expert parallelism (the reference's ``ep_axis``) and the
-pipeline (``pp_axis``) come with port slice 10.
+:func:`loss_fn` adds ``moe_aux_coef`` times that sum. On a mesh MoE runs
+over dp, fsdp and the expert axis ``cfg.ep_axis``: rows split over dp x
+fsdp and replicated over ep, each ep rank holding ``E/ep`` experts;
+capacity, slots and the balance term count the global batch, as the
+reference's GSPMD step does (:func:`ray_tpu_torch.models.moe.moe_ffn`).
+MoE with tp, sp or pp raises.
 """
 from __future__ import annotations
 
@@ -97,11 +112,13 @@ class GPTConfig:
     remat: Any = "dots"              # none|dots|full (bool accepted)
     attn_backend: str = "auto"       # auto | xla | flash | ring | ulysses
     sp_axis: Optional[str] = None    # mesh axis for ring/ulysses attention
-    pp_axis: Optional[str] = None    # pipeline axis: not ported (slice 10)
+    pp_axis: Optional[str] = None    # mesh axis for pipeline parallelism
+    num_microbatches: int = 0        # pp microbatches (0 → 2 * pp size)
     n_experts: int = 0               # >0 → MoE FFN in every block
     expert_top_k: int = 2            # tokens routed to k experts
     capacity_factor: float = 1.25    # per-expert slots = cf*k*T/E
     moe_aux_coef: float = 0.01       # load-balance loss weight
+    ep_axis: Optional[str] = "ep"    # mesh axis sharding the expert dim
     loss_chunk: int = 0              # seq chunk for cross-entropy (0=off):
     # only one chunk's f32 [B, chunk, vocab] logits are live at a time and
     # backward re-projects them (``gpt.py:55``); needed where the whole
@@ -374,12 +391,19 @@ def _resolve_attn_backend(cfg: GPTConfig, q: torch.Tensor) -> str:
 @dataclasses.dataclass(frozen=True)
 class _Par:
     """This rank's share of a sharded forward: the tensor-parallel group
-    (``None`` at tp=1) and the sequence-parallel group with this rank's
-    index along it (``None`` at sp=1, or off a mesh)."""
+    (``None`` at tp=1), the sequence-parallel group with this rank's
+    index along it (``None`` at sp=1, or off a mesh), the pipeline group
+    and its microbatch count (``None`` off a pipeline), and for MoE the
+    expert-parallel group and the group over the data axes (``None``
+    where the axis has one rank)."""
 
     tp: Any = None
     sp: Any = None
     sp_axis: Optional[str] = None
+    pp: Any = None
+    microbatches: int = 0
+    ep: Any = None
+    data: Any = None
 
     @property
     def pieces(self) -> bool:
@@ -391,9 +415,56 @@ class _Par:
 _SOLO = _Par()
 
 
+def _pipelined(cfg: GPTConfig, mesh) -> bool:
+    """Whether ``cfg`` runs a pipeline on ``mesh`` (``gpt.py:376``)."""
+    return bool(cfg.pp_axis) and mesh is not None and \
+        cfg.pp_axis in mesh.shape and mesh.size > 1
+
+
+def _ep_axis(cfg: GPTConfig, mesh) -> Optional[str]:
+    """The axis that shards an MoE model's experts on ``mesh``, if any."""
+    if cfg.n_experts > 0 and cfg.ep_axis and \
+            mesh.shape.get(cfg.ep_axis, 1) > 1:
+        return cfg.ep_axis
+    return None
+
+
+def _check_pp(cfg: GPTConfig, mesh) -> None:
+    """The pipeline branch's refusals (``gpt.py:377-410``,
+    ``pipeline.py:72-83``)."""
+    from ..parallel.pipeline import check_mesh
+
+    sizes = mesh.shape
+    if cfg.n_experts > 0:
+        raise NotImplementedError(
+            "MoE inside a pipeline stage is not supported yet; use an "
+            "{ep, dp} mesh for expert parallelism")
+    tp_ax = "tp" if "tp" in sizes else None
+    sp_ax = cfg.sp_axis if cfg.sp_axis and cfg.sp_axis in sizes else None
+    if tp_ax is not None and sp_ax is not None:
+        raise NotImplementedError(
+            "pp x tp x sp on one mesh is not supported; pick two")
+    check_mesh(mesh, cfg.pp_axis, tp_ax, sp_ax)
+    tp = sizes.get("tp", 1)
+    if cfg.n_head % tp or cfg.d_ff % tp:
+        raise ValueError(f"n_head={cfg.n_head} / d_ff={cfg.d_ff} not "
+                         f"divisible by tp={tp}")
+    if cfg.n_layer % sizes[cfg.pp_axis]:
+        raise ValueError(f"n_layer={cfg.n_layer} not divisible by "
+                         f"{cfg.pp_axis}={sizes[cfg.pp_axis]}")
+    extra = [a for a, n in sizes.items() if n > 1 and a not in (
+        cfg.pp_axis, "dp", "fsdp", "tp", sp_ax)]
+    if extra:
+        raise ValueError(f"mesh axes {extra} shard nothing in a pipeline "
+                         f"of a dense model")
+
+
 def _check(cfg: GPTConfig, mesh) -> None:
-    """Whether ``cfg`` runs on ``mesh`` (``gpt.py:381-423``'s checks):
-    dp/fsdp/tp/sp only; MoE and pp raise on more than one rank."""
+    """Whether ``cfg`` runs on ``mesh`` (``gpt.py:376-423``'s checks):
+    dp/fsdp/tp/sp for a dense model; a pipeline over ``cfg.pp_axis``
+    with tp or sp inside a stage; MoE over dp/fsdp and ``cfg.ep_axis``.
+    Raises where the reference raises, and for MoE with tp or sp, which
+    the reference runs under GSPMD and the port does not yet."""
     sizes = mesh.shape
     seq = cfg.attn_backend in ("ring", "ulysses")
     if seq and (not cfg.sp_axis or cfg.sp_axis not in sizes):
@@ -402,26 +473,33 @@ def _check(cfg: GPTConfig, mesh) -> None:
             f"axis {cfg.sp_axis!r}; pass mesh via make_train_step")
     if mesh.size == 1:
         return
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            f"MoE (n_experts={cfg.n_experts}) on {mesh.size} ranks: the "
-            f"reference's capacity counts the global batch's tokens, so a "
-            f"per-rank router would drop other tokens; expert parallelism "
-            f"comes with port slice 10")
-    if (cfg.pp_axis and cfg.pp_axis in sizes) or \
-            sizes.get("pp", 1) > 1 or sizes.get("ep", 1) > 1:
-        raise NotImplementedError(
-            f"pipeline and expert axes ({sizes}) come with port slice 10")
+    if _pipelined(cfg, mesh):
+        return _check_pp(cfg, mesh)
     tp = sizes.get("tp", 1)
-    if cfg.n_head % tp or cfg.d_ff % tp:
+    if cfg.n_experts > 0:
+        gap = [a for a in ("tp", cfg.sp_axis or "sp")
+               if sizes.get(a, 1) > 1]
+        if gap:
+            raise NotImplementedError(
+                f"MoE on a mesh with {gap}: the reference runs MoE x tp and "
+                f"MoE x sp under GSPMD; the port runs MoE over dp, fsdp "
+                f"and {cfg.ep_axis!r} only (not yet ported)")
+        ep = sizes.get(cfg.ep_axis, 1) if cfg.ep_axis else 1
+        if cfg.n_experts % ep:
+            raise ValueError(f"n_experts={cfg.n_experts} not divisible by "
+                             f"{cfg.ep_axis}={ep}")
+    elif cfg.n_head % tp or cfg.d_ff % tp:
         raise ValueError(f"n_head={cfg.n_head} / d_ff={cfg.d_ff} not "
                          f"divisible by tp={tp}")
-    extra = [a for a, n in sizes.items() if n > 1 and a not in (
-        "dp", "fsdp", "tp") and not (seq and a == cfg.sp_axis)]
+    used = ("dp", "fsdp", "tp") if cfg.n_experts == 0 else \
+        ("dp", "fsdp", cfg.ep_axis)
+    extra = [a for a, n in sizes.items() if n > 1 and a not in used
+             and not (seq and a == cfg.sp_axis)]
     if extra:
         raise ValueError(f"mesh axes {extra} shard nothing under "
                          f"attn_backend={cfg.attn_backend!r} (an sp axis "
-                         f"needs ring or ulysses attention)")
+                         f"needs ring or ulysses attention, a pp axis "
+                         f"cfg.pp_axis, an ep axis an MoE model)")
     sp_n = sizes.get(cfg.sp_axis, 1) if seq else 1
     if cfg.attn_backend == "ulysses" and (cfg.n_head // tp) % sp_n:
         raise ValueError(f"ulysses needs the {cfg.n_head // tp} heads of a "
@@ -436,11 +514,22 @@ def _par(cfg: GPTConfig, mesh) -> _Par:
     _check(cfg, mesh)
     seq = cfg.attn_backend in ("ring", "ulysses")
     sizes = mesh.shape
-    tp = sizes.get("tp", 1) if mesh.size > 1 else 1
-    sp = sizes.get(cfg.sp_axis, 1) if seq and mesh.size > 1 else 1
-    return _Par(tp=mesh.group("tp") if tp > 1 else None,
-                sp=mesh.group(cfg.sp_axis) if sp > 1 else None,
-                sp_axis=cfg.sp_axis if seq else None)
+
+    def group(axis):
+        return mesh.group(axis) if mesh.size > 1 and axis and \
+            sizes.get(axis, 1) > 1 else None
+
+    if _pipelined(cfg, mesh):
+        sp_ax = cfg.sp_axis if cfg.sp_axis in sizes else None
+        return _Par(tp=group("tp"), sp=group(sp_ax), sp_axis=sp_ax,
+                    pp=mesh.group(cfg.pp_axis),
+                    microbatches=cfg.num_microbatches)
+    data = tuple(a for a in ("dp", "fsdp") if sizes.get(a, 1) > 1)
+    moe = cfg.n_experts > 0 and mesh.size > 1
+    return _Par(tp=group("tp"), sp=group(cfg.sp_axis) if seq else None,
+                sp_axis=cfg.sp_axis if seq else None,
+                ep=group(_ep_axis(cfg, mesh)) if moe else None,
+                data=mesh.group(data) if moe and data else None)
 
 
 def _attention(q, k, v, cfg: GPTConfig, par: _Par = _SOLO) -> torch.Tensor:
@@ -493,19 +582,21 @@ class _ReduceFromTP(torch.autograd.Function):
 
 
 def _ffn(h: torch.Tensor, p: Params, cfg: GPTConfig, aux: bool = True,
-         group=None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+         group=None, par: _Par = _SOLO
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The block's FFN on the normed ``h`` → (y, load-balance term):
     the MoE FFN when ``cfg.n_experts > 0`` (its term ``None`` with
-    ``aux=False``), else the dense GELU MLP (term ``None``). Under a
-    tensor-parallel ``group`` (dense only) ``w1`` is this rank's column
-    slice and ``w2`` reduces through :func:`_mm_row`."""
+    ``aux=False``; on a mesh over ``par.ep`` and ``par.data``), else the
+    dense GELU MLP (term ``None``). Under a tensor-parallel ``group``
+    (dense only) ``w1`` is this rank's column slice and ``w2`` reduces
+    through :func:`_mm_row`."""
     if cfg.n_experts > 0:
         from .moe import moe_ffn
 
         return moe_ffn(h, p["router"], p["w_up"], p["w_down"],
                        top_k=cfg.expert_top_k,
                        capacity_factor=cfg.capacity_factor,
-                       dtype=cfg.dtype, aux=aux)
+                       dtype=cfg.dtype, aux=aux, ep=par.ep, data=par.data)
     return _mm_row(_gelu(_mm(h, p["w1"], cfg.dtype)), p["w2"], cfg.dtype,
                    group), None
 
@@ -522,8 +613,80 @@ def _block(x: torch.Tensor, p: Params, cfg: GPTConfig, par: _Par = _SOLO
     v = _mm(h, p["wv"], cfg.dtype).reshape(B, S, H, hd)
     att = _attention(q, k, v, cfg, par).reshape(B, S, d)
     x = x + _mm(att, p["wo"], cfg.dtype)
-    y, aux = _ffn(_rmsnorm(x, p["ln2_scale"]), p, cfg)
+    y, aux = _ffn(_rmsnorm(x, p["ln2_scale"]), p, cfg, par=par)
     return x + y, aux
+
+
+def _block_pp_tp(x: torch.Tensor, p: Params, cfg: GPTConfig, tp
+                 ) -> torch.Tensor:
+    """A pipeline stage's block under tensor parallelism
+    (``gpt.py:265-296``): this rank's ``n_head/tp`` heads and ``d_ff/tp``
+    hidden units (column-parallel ``wq/wk/wv/w1``), row-parallel
+    ``wo``/``w2`` whose partials are summed over the tp group. As in the
+    reference each partial is cast to the compute dtype BEFORE its sum
+    (``:287-289``, ``:293-295``; the non-pp tp path sums f32 partials,
+    :func:`_reduced`); the sum runs in f32 and is cast once, which for
+    two ranks is the reference's compute-dtype ``psum`` and needs no
+    bf16 reduction from the transport. Attention is the flash kernels or
+    the plain einsums, never ring; no remat, as in the reference."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(x, p["ln1_scale"], p["wq"], p["wk"], p["wv"], cfg, tp)
+    if _resolve_attn_backend(cfg, q) == "flash":
+        att = flash_attention(q, k, v, causal=True)
+    else:
+        att = _attention_xla(q, k, v, cfg)
+    x = x + _psum_cast(_mm(att.reshape(B, S, -1), p["wo"], cfg.dtype),
+                       cfg, tp)
+    h = _rmsnorm(x, p["ln2_scale"])
+    if tp is not None:
+        h = _CopyToTP.apply(h, tp)
+    y = _mm(_gelu(_mm(h, p["w1"], cfg.dtype)), p["w2"], cfg.dtype)
+    return x + _psum_cast(y, cfg, tp)
+
+
+def _psum_cast(y: torch.Tensor, cfg: GPTConfig, tp) -> torch.Tensor:
+    """The compute-dtype partials ``y`` summed over ``tp`` (f32 sum, one
+    cast); ``y`` itself at tp=1."""
+    return y if tp is None else \
+        _ReduceFromTP.apply(y.float(), tp).to(cfg.dtype)
+
+
+def _block_pp_sp(x: torch.Tensor, p: Params, cfg: GPTConfig, sp
+                 ) -> torch.Tensor:
+    """A pipeline stage's block under sequence parallelism
+    (``gpt.py:299-319``): ``x`` is this rank's ``[B, S/sp, d]`` chunk and
+    attention is always ring attention over the sp group, whatever
+    ``attn_backend`` says; no remat, as in the reference."""
+    from ..ops import ring_attention as ra
+
+    B, S, d = x.shape
+    q, k, v = _qkv(x, p["ln1_scale"], p["wq"], p["wk"], p["wv"], cfg, None)
+    att = ra.ring_attention(q, k, v, group=sp, causal=True)
+    x = x + _mm(att.reshape(B, S, d), p["wo"], cfg.dtype)
+    h = _rmsnorm(x, p["ln2_scale"])
+    return x + _mm(_gelu(_mm(h, p["w1"], cfg.dtype)), p["w2"], cfg.dtype)
+
+
+def _pp_tp_param_specs(names: Iterable[str], pp_axis: str,
+                       tp_axis: Optional[str]):
+    """Each stacked block weight's :class:`~ray_tpu_torch.parallel.
+    sharding.PartitionSpec` under pp x tp (``gpt.py:322-341``): the
+    layer dim over ``pp_axis``; column weights (``wq/wk/wv/w1``) split
+    their output dim over ``tp_axis``, row weights (``wo/w2``) their
+    input dim. A rank's compute slice of the full stack is the spec's
+    shard (:func:`compute_params`)."""
+    from ..parallel.sharding import PartitionSpec as P
+    from .gpt_decode import _TP_COL, _TP_ROW  # that module imports this
+
+    specs = {}
+    for n in names:
+        if tp_axis and n in _TP_COL:           # [L, d, out]
+            specs[n] = P(pp_axis, None, tp_axis)
+        elif tp_axis and n in _TP_ROW:
+            specs[n] = P(pp_axis, tp_axis)
+        else:
+            specs[n] = P(pp_axis)
+    return specs
 
 
 def _qkv(x, ln, wq, wk, wv, cfg: GPTConfig, tp):
@@ -603,6 +766,68 @@ def _remat(fn: Callable, policy: str, *args):
                           create_selective_checkpoint_contexts, _save_dots))
 
 
+def _embed(params: Params, tokens: torch.Tensor, start: int,
+           cfg: GPTConfig) -> torch.Tensor:
+    S = tokens.shape[1]
+    x = params["embed"].to(cfg.dtype)[tokens]
+    return x + params["pos_embed"][start:start + S].to(cfg.dtype)[None]
+
+
+def _trunk(params: Params, tokens, cfg: GPTConfig, par: _Par, mesh,
+           to_all: bool = True):
+    """The embedding and every block → (pre-norm activations, the
+    blocks' load-balance terms). In a pipeline the activations are the
+    last stage's (on every pp rank with ``to_all``, else there only; see
+    :func:`~ray_tpu_torch.parallel.pipeline.pipeline_apply`)."""
+    tokens = torch.as_tensor(tokens, device=params["embed"].device).long()
+    S = tokens.shape[1]
+    start = par.sp.rank * S if par.sp is not None else 0
+    policy = _remat_policy(cfg.remat)
+    if par.pp is not None:
+        return _stages(params, tokens, start, cfg, par, mesh, policy,
+                       to_all), []
+    x = _embed(params, tokens, start, cfg)
+    auxs = []
+    for i in range(cfg.n_layer):
+        if par.pieces:
+            x = _block_pieces(x, layer_params(params, i), cfg, par, policy)
+            continue
+        x, aux = _remat(_block, policy, x, layer_params(params, i), cfg,
+                        par)
+        if aux is not None:
+            auxs.append(aux)
+    return x, auxs
+
+
+def _stages(params: Params, tokens, start: int, cfg: GPTConfig, par: _Par,
+            mesh, policy: str, to_all: bool) -> torch.Tensor:
+    """The pipeline branch (``gpt.py:376-417``): stage 0 embeds, and the
+    stage's block is :func:`_block_pp_tp` under tp, :func:`_block_pp_sp`
+    under sp, else the remat'ed :func:`_block` on one rank's math."""
+    from ..parallel.pipeline import pipeline_apply
+
+    B, S = tokens.shape
+    if par.pp.rank == 0:
+        x = _embed(params, tokens, start, cfg)
+    else:                        # only the shape and dtype are read
+        x = torch.empty(B, S, cfg.d_model, dtype=cfg.dtype,
+                        device=tokens.device)
+    tp_ax = "tp" if "tp" in mesh.shape else None
+    if tp_ax is not None:
+        def block(a, lp):
+            return _block_pp_tp(a, lp, cfg, par.tp)
+    elif par.sp_axis is not None:
+        def block(a, lp):
+            return _block_pp_sp(a, lp, cfg, par.sp)
+    else:
+        def block(a, lp):
+            return _remat(_block, policy, a, lp, cfg)[0]
+    return pipeline_apply(
+        block, {n: params[n] for n in block_names(params)}, x, mesh=mesh,
+        pp_axis=cfg.pp_axis, num_microbatches=par.microbatches,
+        tp_axis=tp_ax, sp_axis=par.sp_axis, to_all=to_all)
+
+
 def forward(params: Params, tokens: torch.Tensor, cfg: GPTConfig,
             mesh=None, *, return_aux: bool = False,
             final_hidden: bool = False):
@@ -615,26 +840,14 @@ def forward(params: Params, tokens: torch.Tensor, cfg: GPTConfig,
 
     On a ``mesh`` of several ranks every rank calls this with its own
     share, as :func:`make_train_step`'s step does: ``params`` in this
-    rank's compute layout (:func:`compute_params`), ``tokens`` its rows
-    of the batch and, under ring/ulysses attention, its chunk of the
-    sequence (chunk ``i`` of the sp axis starts at position ``i * S``);
-    the result is this rank's logits."""
+    rank's compute layout (:func:`compute_params`: under pp its stage's
+    layers, under ep its experts), ``tokens`` its rows of the batch and,
+    under ring/ulysses attention or pp x sp, its chunk of the sequence
+    (chunk ``i`` of the sp axis starts at position ``i * S``); the result
+    is this rank's logits. In a pipeline every pp rank gets the last
+    stage's result (broadcast from it, the reference's masked ``psum``)."""
     par = _par(cfg, mesh)
-    tokens = torch.as_tensor(tokens, device=params["embed"].device).long()
-    S = tokens.shape[1]
-    start = par.sp.rank * S if par.sp is not None else 0
-    x = params["embed"].to(cfg.dtype)[tokens]
-    x = x + params["pos_embed"][start:start + S].to(cfg.dtype)[None]
-    policy = _remat_policy(cfg.remat)
-    auxs = []
-    for i in range(cfg.n_layer):
-        if par.pieces:
-            x = _block_pieces(x, layer_params(params, i), cfg, par, policy)
-            continue
-        x, aux = _remat(_block, policy, x, layer_params(params, i), cfg,
-                        par)
-        if aux is not None:
-            auxs.append(aux)
+    x, auxs = _trunk(params, tokens, cfg, par, mesh)
     x = _rmsnorm(x, params["ln_f_scale"])
     out = x if final_hidden else _project_vocab(x, params["embed"], cfg)
     if not return_aux:
@@ -678,12 +891,39 @@ def _chunked_ce(x, embed, targets, cfg: GPTConfig) -> torch.Tensor:
 
 def _data_axes(mesh, cfg: GPTConfig) -> Tuple[str, ...]:
     """The axes over which ranks see different tokens (rows over dp x
-    fsdp; sequence chunks over the sp axis of ring/ulysses)."""
+    fsdp; sequence chunks over the sp axis of ring/ulysses, and of a
+    pipeline's pp x sp)."""
     axes = [a for a in ("dp", "fsdp") if mesh.shape.get(a, 1) > 1]
-    if cfg.attn_backend in ("ring", "ulysses") and \
-            mesh.shape.get(cfg.sp_axis, 1) > 1:
+    if (cfg.attn_backend in ("ring", "ulysses") or _pipelined(cfg, mesh)) \
+            and cfg.sp_axis and mesh.shape.get(cfg.sp_axis, 1) > 1:
         axes.append(cfg.sp_axis)
     return tuple(axes)
+
+
+def _pp_loss(params: Params, tokens, targets, cfg: GPTConfig, par: _Par,
+             mesh) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """:func:`loss_fn` in a pipeline: only the last stage runs the final
+    norm, the tied vocab projection and the cross-entropy, and
+    broadcasts the metrics over pp; the other stages return the 0-dim
+    zero whose backward runs their share of the schedule."""
+    h, _ = _trunk(params, tokens, cfg, par, mesh, to_all=False)
+    last = par.pp.world_size - 1
+    if par.pp.rank == last:
+        x = _rmsnorm(h, params["ln_f_scale"])
+        if cfg.loss_chunk:
+            loss = _chunked_ce(x, params["embed"], targets, cfg)
+        else:
+            loss = _ce_from_logits(_project_vocab(x, params["embed"], cfg),
+                                   targets)
+        done = loss.detach()
+    else:
+        loss = h
+        done = torch.zeros((), dtype=torch.float32, device=h.device)
+    done = par.pp.broadcast(done, src_rank=last)
+    axes = _data_axes(mesh, cfg)
+    if axes:
+        done = mesh.group(axes).allreduce(done) / mesh.size_of(axes)
+    return loss, {"loss": done, "perplexity": torch.exp(done)}
 
 
 def loss_fn(params: Params, batch: Mapping, cfg: GPTConfig, mesh=None
@@ -715,6 +955,8 @@ def loss_fn(params: Params, batch: Mapping, cfg: GPTConfig, mesh=None
             raise ValueError(f"seq {S} not divisible by sp={n}")
         tokens, targets = (t.chunk(n, dim=1)[par.sp.rank]
                            for t in (tokens, targets))
+    if par.pp is not None:
+        return _pp_loss(params, tokens, targets, cfg, par, mesh)
     if cfg.loss_chunk:
         x, aux = forward(params, tokens, cfg, mesh, return_aux=True,
                          final_hidden=True)
@@ -760,10 +1002,9 @@ def _tp_dim(name: str, ndim: int, tp: int) -> Optional[int]:
     return 1 if name in _TP_ROW else None
 
 
-def compute_params(full: Params, mesh) -> Params:
-    """This rank's compute layout of the full weights on ``mesh``: under
-    tp its column slice of ``wq/wk/wv/w1`` and row slice of ``wo/w2``
-    (views), every other weight whole."""
+def _tp_slices(full: Params, mesh) -> Params:
+    """Under tp this rank's column slice of ``wq/wk/wv/w1`` and row
+    slice of ``wo/w2`` (views), every other weight whole."""
     tp = mesh.shape.get("tp", 1) if mesh is not None else 1
     if tp == 1:
         return dict(full)
@@ -772,6 +1013,31 @@ def compute_params(full: Params, mesh) -> Params:
     for name, t in full.items():
         dim = _tp_dim(name, t.dim(), tp)
         out[name] = t if dim is None else t.chunk(tp, dim=dim)[r]
+    return out
+
+
+def compute_params(full: Params, mesh, cfg: Optional[GPTConfig] = None
+                   ) -> Params:
+    """This rank's compute layout of the full weights on ``mesh``: under
+    tp its column slice of ``wq/wk/wv/w1`` and row slice of ``wo/w2``
+    (views), every other weight whole. With ``cfg``: in a pipeline the
+    block weights are its stage's layers (and tp slices), cut by
+    :func:`_pp_tp_param_specs`, the rest whole; for an MoE model over
+    ``cfg.ep_axis`` ``w_up``/``w_down`` hold its ``E/ep`` experts."""
+    if cfg is not None and _pipelined(cfg, mesh):
+        from ..parallel.sharding import Placement
+
+        tp_ax = "tp" if mesh.shape.get("tp", 1) > 1 else None
+        specs = _pp_tp_param_specs(block_names(full), cfg.pp_axis, tp_ax)
+        return {n: Placement(mesh, specs[n]).shard(t) if n in specs else t
+                for n, t in full.items()}
+    out = _tp_slices(full, mesh)
+    ep = _ep_axis(cfg, mesh) if cfg is not None and mesh is not None \
+        else None
+    if ep is not None:
+        n, r = mesh.shape[ep], mesh.coords()[ep]
+        for name in ("w_up", "w_down"):
+            out[name] = out[name].chunk(n, dim=1)[r]
     return out
 
 
@@ -796,15 +1062,22 @@ def make_train_step(cfg: GPTConfig, mesh=None, optimizer: Optional[
       metrics are the global batch's.
     - ``state_placements`` is ``{"params", "opt", "step"}`` of
       :class:`~ray_tpu_torch.parallel.sharding.Placement`s: each
-      parameter's placement under ``rules`` (default ``LM_RULES``), the
-      optimizer's moments following their parameter's; ``step``
-      replicated. ``batch_placement`` shards the batch rows over dp x
-      fsdp.
+      parameter's placement under ``rules`` (default ``PP_LM_RULES`` when
+      the mesh has ``cfg.pp_axis``, else ``LM_RULES``), the optimizer's
+      moments following their parameter's; ``step`` replicated.
+      ``batch_placement`` shards the batch rows over dp x fsdp.
 
     On several ranks every rank of ``mesh`` builds the step and calls
     ``init`` and ``step`` with the same arguments (one process per rank;
-    see the module notes). MoE models and pipeline or expert axes raise
-    (port slice 10)."""
+    see the module notes). Each step gathers every parameter from its
+    shards except along the axes a rank computes its own piece of: a
+    pipeline stage keeps its layers (the rules must split the block
+    weights' layer dim over ``cfg.pp_axis``), an expert rank its experts
+    (the expert dim over ``cfg.ep_axis``). Gradients of what every tp or
+    ep rank computes in full are divided by that axis's size, the slices
+    and pieces are reduced to their shards, and everything is averaged
+    over the data ranks. MoE with tp, sp or pp raises (see
+    :func:`_check`)."""
     from ..parallel import mesh as pmesh
     from ..parallel import sharding as shr
 
@@ -814,8 +1087,9 @@ def make_train_step(cfg: GPTConfig, mesh=None, optimizer: Optional[
     set_matmul_precision(dev)
     make_opt = optimizer or _default_optimizer
     _check(cfg, mesh)
+    pp_axis = cfg.pp_axis if _pipelined(cfg, mesh) else None
     if rules is None:
-        rules = shr.LM_RULES
+        rules = shr.PP_LM_RULES if pp_axis else shr.LM_RULES
     shapes = param_shapes(cfg)
     placed = shr.tree_shardings(params_tree({
         n: torch.empty(s, device="meta") for n, s in shapes.items()}),
@@ -846,8 +1120,24 @@ def make_train_step(cfg: GPTConfig, mesh=None, optimizer: Optional[
 
         return init, step, state_placements, batch_placement
 
+    # The axes along which a rank computes with its own piece of a leaf:
+    # the stage's layers (dim 0), the expert rank's experts (dim 1).
+    ep_axis = _ep_axis(cfg, mesh)
+    keep = {}
+    if pp_axis:
+        keep.update({n: (pp_axis, 0) for n in block_names(shapes)})
+    if ep_axis:
+        keep.update({n: (ep_axis, 1) for n in ("w_up", "w_down")})
+    for n, (axis, dim) in keep.items():
+        spec = placements[n].spec
+        if len(spec) <= dim or spec[dim] != axis:
+            raise ValueError(f"{n}: on {mesh.shape} the rules must split "
+                             f"dim {dim} over {axis!r} alone, not {spec}")
+    skip = {n: (axis,) for n, (axis, _) in keep.items()}
+    computing = {n: placements[n].without(skip.get(n, ())) for n in shapes}
     tp = mesh.shape.get("tp", 1)
     tp_rank = mesh.coords().get("tp", 0)
+    ep = mesh.shape[ep_axis] if ep_axis else 1
     rows = tuple(a for a in shr.BATCH_SPEC if a in mesh.shape)
     n_avg = mesh.size_of(_data_axes(mesh, cfg))
 
@@ -856,9 +1146,9 @@ def make_train_step(cfg: GPTConfig, mesh=None, optimizer: Optional[
         opt.zero_grad(set_to_none=True)
         names = sorted(local)            # one collective order on every rank
         with torch.no_grad():
-            full = {n: placements[n].gather(local[n]) for n in names}
+            full = {n: computing[n].gather(local[n]) for n in names}
         comp = {n: t.detach().requires_grad_(True)
-                for n, t in compute_params(full, mesh).items()}
+                for n, t in _tp_slices(full, mesh).items()}
         mine = {k: torch.as_tensor(v, device=dev).chunk(
             mesh.size_of(rows))[mesh.index(rows)] for k, v in batch.items()}
         loss, metrics = loss_fn(comp, mine, cfg, mesh)
@@ -866,6 +1156,8 @@ def make_train_step(cfg: GPTConfig, mesh=None, optimizer: Optional[
         with torch.no_grad():
             for n in names:
                 g = comp[n].grad
+                if g is None:              # a stage that does not use it
+                    g = torch.zeros_like(comp[n])
                 dim = _tp_dim(n, g.dim(), tp)
                 if dim is not None:        # this rank's slice, zero elsewhere
                     whole = torch.zeros_like(full[n])
@@ -873,7 +1165,10 @@ def make_train_step(cfg: GPTConfig, mesh=None, optimizer: Optional[
                     g = whole
                 elif tp > 1:               # every tp rank holds all of it
                     g = g / tp
-                local[n].grad = placements[n].reduce(g) / n_avg
+                if ep > 1 and n not in skip:   # every ep rank's rows alike
+                    g = g / ep
+                local[n].grad = computing[n].reduce(
+                    g, skip=skip.get(n, ())) / n_avg
             del full, comp
         opt.step()
         return ({"params": local, "opt": opt, "step": state["step"] + 1},

@@ -28,8 +28,23 @@ operands; the gates are rounded to the compute dtype before the combine;
 each expert product accumulates in f32 and is cast once; GELU is the
 tanh form.
 
-``ep_axis`` (expert parallelism over a mesh) is not ported: the port has
-no mesh.
+**On a mesh** (:func:`moe_ffn`'s ``ep`` and ``data`` groups, what the
+reference's GSPMD step computes over ``dp``/``fsdp``/``ep``): rows are
+split over the data axes and replicated over ``ep``; each ep rank holds
+``E/ep`` experts. Capacity counts the GLOBAL batch, and slots are handed
+out first come, first served over the global token order (rank ``r``'s
+rows are chunk ``r`` of the batch): each rank all-gathers its
+per-choice expert counts ``[k, E]`` over the data axes and offsets its
+local slots by them (:func:`route`), so every rank drops exactly the
+pairs one card would. Each ep rank runs its experts on the kept pairs
+that land on them; the gated partial outputs are summed over ep in f32
+before the one cast (with top-2 the sum of a value and zeros is exact
+in any order). Rows are identical across ep ranks, so nothing needs an
+all-to-all: the rows and the gates enter this rank's experts through
+an identity whose backward sums over ep, and the partials leave through
+a sum whose backward is the identity (Megatron's pair, as under tp).
+The balance term sums its ``[E]`` statistics over the data axes before
+the product, as the global means it is made of.
 """
 from __future__ import annotations
 
@@ -39,7 +54,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .gpt import _gelu
+from .gpt import _CopyToTP, _gelu, _ReduceFromTP
 
 
 def capacity(tokens: int, n_experts: int, top_k: int,
@@ -60,7 +75,8 @@ class Routes(NamedTuple):
     gate: torch.Tensor      # renormalised top-k probability, probs dtype
 
 
-def route(probs: torch.Tensor, top_k: int, cap: int) -> Routes:
+def route(probs: torch.Tensor, top_k: int, cap: int, group=None
+          ) -> Routes:
     """``probs [T, E]`` → :class:`Routes`. Top-k by a stable descending
     sort, so equal probabilities take the lower expert index first, as
     ``lax.top_k`` does (``torch.topk`` promises no order among ties).
@@ -69,25 +85,61 @@ def route(probs: torch.Tensor, top_k: int, cap: int) -> Routes:
     ``counts`` offset (``moe.py:52-62``). The count runs along the last
     axis of an ``[E, k * T]`` one-hot: a scan down the long axis of a
     ``[k * T, E]`` tensor runs E lanes serially on the card (12 ms a
-    layer at T = 32768 on an H100 80GB HBM3 at 700 W)."""
+    layer at T = 32768 on an H100 80GB HBM3 at 700 W).
+
+    With ``group`` (the data ranks; this rank's rows are chunk
+    ``group.rank`` of the global batch) the slots are the global ones:
+    pair ``(j, t)`` of expert e sits after every rank's choices ``j' <
+    j`` for e, then the lower ranks' choice ``j`` for e, then this
+    rank's earlier tokens at choice ``j``."""
     T, E = probs.shape
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates = vals[:, :top_k]
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
     expert = idx[:, :top_k].t().reshape(-1)                   # [k*T]
-    seen = F.one_hot(expert, E).t().cumsum(1)                 # [E, k*T]
+    hot = F.one_hot(expert, E)                                # [k*T, E]
+    seen = hot.t().cumsum(1)                                  # [E, k*T]
     slot = seen.gather(0, expert[None])[0] - 1
-    return Routes(expert.view(top_k, T), slot.view(top_k, T),
-                  (slot < cap).view(top_k, T), gates.t())
+    expert, slot = expert.view(top_k, T), slot.view(top_k, T)
+    if group is not None and group.world_size > 1:
+        counts = hot.view(top_k, T, E).sum(1)                 # [k, E]
+        every = group.allgather(counts[None])                 # [n, k, E]
+        total = every.sum(0)
+        offset = (total.cumsum(0) - total) - (counts.cumsum(0) - counts) \
+            + every[:group.rank].sum(0)
+        slot = slot + offset.gather(1, expert)
+    return Routes(expert, slot, slot < cap, gates.t())
 
 
-def balance_loss(probs: torch.Tensor, routes: Routes) -> torch.Tensor:
+class _SumOver(torch.autograd.Function):
+    """An all-reduce (sum) over ``group`` whose backward is one too: each
+    rank's copy of a global statistic passes its gradient to every
+    rank's share of the sum."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return group.allreduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.allreduce(g), None
+
+
+def balance_loss(probs: torch.Tensor, routes: Routes, group=None
+                 ) -> torch.Tensor:
     """Switch's load-balance term ``E * sum_e f_e * p_e``: ``f_e`` the
     share of tokens whose top-1 expert is e, ``p_e`` the mean router
-    probability of e (``moe.py:64-68``)."""
+    probability of e (``moe.py:64-68``). With ``group`` (the data ranks,
+    equal rows each) both are means over the global batch: their ``[E]``
+    sums are all-reduced before the product."""
     E = probs.shape[-1]
-    frac = F.one_hot(routes.expert[0], E).to(probs.dtype).mean(0)
-    return E * (frac * probs.mean(0)).sum()
+    top1 = F.one_hot(routes.expert[0], E).to(probs.dtype)
+    if group is None or group.world_size == 1:
+        return E * (top1.mean(0) * probs.mean(0)).sum()
+    n = probs.shape[0] * group.world_size
+    frac = group.allreduce(top1.sum(0)) / n
+    return E * (frac * _SumOver.apply(probs.sum(0), group) / n).sum()
 
 
 def top_k_gating(probs: torch.Tensor, top_k: int, cap: int
@@ -108,22 +160,40 @@ def top_k_gating(probs: torch.Tensor, top_k: int, cap: int
 
 def moe_ffn(x: torch.Tensor, router_kernel: torch.Tensor,
             w_up: torch.Tensor, w_down: torch.Tensor, *, top_k: int,
-            capacity_factor: float, dtype: torch.dtype, aux: bool = True
+            capacity_factor: float, dtype: torch.dtype, aux: bool = True,
+            ep=None, data=None
             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """x ``[B, S, d]`` → (y ``[B, S, d]`` in ``dtype``, aux f32 scalar)
     (``moe.py:72``), routed by index. ``router_kernel [d, E]``, ``w_up
     [E, d, f]``, ``w_down [E, f, d]``. Capacity counts all ``B * S``
     rows, so every row of the batch competes for it. ``aux=False`` skips
     the load-balance term (the decode paths discard it) and returns
-    ``None`` in its place."""
+    ``None`` in its place.
+
+    On a mesh (see the module notes): ``data`` is the group over the
+    data axes (``x`` this rank's rows, chunk ``data.rank`` of the batch;
+    capacity, slots and the balance term count every rank's rows), and
+    ``ep`` the expert group, ``w_up``/``w_down`` holding this rank's
+    ``E/ep`` experts ``[ep.rank * E/ep, ...)``; ``y`` is then the sum
+    over ep of every rank's experts' share."""
     B, S, d = x.shape
     E = router_kernel.shape[-1]
     T = B * S
     xt = x.reshape(T, d)
     probs = torch.softmax(torch.matmul(xt.float(), router_kernel.float()),
                           dim=-1)
-    cap = capacity(T, E, top_k, capacity_factor)
-    r = route(probs, top_k, cap)
+    cap = capacity(T * (data.world_size if data is not None else 1), E,
+                   top_k, capacity_factor)
+    r = route(probs, top_k, cap) if data is None else \
+        route(probs, top_k, cap, data)
+    gate = r.gate
+    n_loc = w_up.shape[0]                # this rank's experts
+    e0 = ep.rank * n_loc if ep is not None else 0
+    keep = r.keep if ep is None else \
+        r.keep & (r.expert >= e0) & (r.expert < e0 + n_loc)
+    if ep is not None:                   # replicated rows into local experts
+        xt = _CopyToTP.apply(xt, ep)
+        gate = _CopyToTP.apply(gate, ep)
     # Buffer slot e * cap + c of each pair; a dropped pair points at the
     # zero row past the last slot. Both gathers are ``index_select``,
     # whose backward adds with atomics: an empty slot's row and a dropped
@@ -131,16 +201,19 @@ def moe_ffn(x: torch.Tensor, router_kernel: torch.Tensor,
     # indexing runs such a repeated index serially (0.56 s of a training
     # step at T = 32768 on an H100 80GB HBM3 at 700 W). A real row takes
     # at most k adds, which sum alike in any order for k = 2.
-    flat = torch.where(r.keep, r.expert * cap + r.slot, E * cap)
+    flat = torch.where(keep, (r.expert - e0) * cap + r.slot, n_loc * cap)
     tok = torch.arange(T, device=x.device).expand(top_k, T)
-    src = torch.full((E * cap + 1,), T, dtype=torch.long, device=x.device)
+    src = torch.full((n_loc * cap + 1,), T, dtype=torch.long,
+                     device=x.device)
     src[flat] = tok                     # row T of xz is zero
     xz = torch.cat([xt.to(dtype), xt.new_zeros(1, d, dtype=dtype)])
-    xe = xz.index_select(0, src[:-1]).view(E, cap, d)
+    xe = xz.index_select(0, src[:-1]).view(n_loc, cap, d)
     h = _gelu(torch.matmul(xe, w_up.to(dtype)).to(dtype))
-    ye = torch.matmul(h, w_down.to(dtype)).to(dtype).view(E * cap, d)
+    ye = torch.matmul(h, w_down.to(dtype)).to(dtype).view(n_loc * cap, d)
     yz = torch.cat([ye, ye.new_zeros(1, d)])
     picked = yz.index_select(0, flat.view(-1)).view(top_k, T, d)
-    y = (r.gate.to(dtype).float()[..., None] * picked.float()).sum(0)
+    y = (gate.to(dtype).float()[..., None] * picked.float()).sum(0)
+    if ep is not None:
+        y = _ReduceFromTP.apply(y, ep)
     return (y.to(dtype).view(B, S, d),
-            balance_loss(probs, r) if aux else None)
+            balance_loss(probs, r, data) if aux else None)

@@ -3,9 +3,11 @@
 
 One process per rank, as PyTorch trains: :func:`initialize_multihost`
 joins the process group, :func:`create_mesh` names its axes, and the
-rules place every parameter (``LM_RULES``: ``fsdp``/``tp``-sharded
-storage, ``dp`` x ``fsdp``-sharded batch). Pipeline (``pipeline.py``)
-and multislice (``multislice.py``) are not ported yet.
+rules place every parameter (``LM_RULES``: ``fsdp``/``tp``/``ep``-sharded
+storage, ``dp`` x ``fsdp``-sharded batch; ``PP_LM_RULES``: each pipeline
+stage's layers). :func:`pipeline_apply` runs the GPipe schedule over
+``pp``; :func:`dcn_allreduce_tree` and :func:`run_multislice_dryrun`
+compose a mesh inside each slice with a host group across slices.
 """
 from .mesh import (  # noqa: F401
     AXIS_ORDER,
@@ -17,6 +19,11 @@ from .mesh import (  # noqa: F401
     mesh_shape,
     single_device_mesh,
 )
+from .multislice import (  # noqa: F401
+    dcn_allreduce_tree,
+    run_multislice_dryrun,
+)
+from .pipeline import pipeline_apply  # noqa: F401
 from .sharding import (  # noqa: F401
     BATCH_SPEC,
     DP_RULES,

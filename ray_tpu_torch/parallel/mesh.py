@@ -13,8 +13,8 @@ given axes (:meth:`Mesh.group`).
 
 Axis conventions (any subset may be present, sizes multiply to the
 ranks): ``dp`` data parallel, ``fsdp`` fully-sharded data parallel,
-``tp`` tensor parallel, ``sp`` sequence parallel; ``ep`` (expert) and
-``pp`` (pipeline) are named but no step runs them yet.
+``tp`` tensor parallel, ``sp`` sequence parallel, ``ep`` expert parallel
+(an MoE model's experts), ``pp`` pipeline (stages of layers).
 """
 from __future__ import annotations
 

@@ -132,10 +132,28 @@ class Placement:
             out = g.allgather(out.movedim(d, 0)).movedim(0, d)
         return out
 
-    def reduce(self, full: torch.Tensor) -> torch.Tensor:
+    def without(self, axes: Sequence[str]) -> "Placement":
+        """This placement with ``axes`` taken out of its spec: the layout
+        of a rank's piece that keeps its shard along ``axes`` and is whole
+        along the other sharded dims (a pipeline stage's layers, an
+        expert rank's experts). A dim split over one of ``axes`` together
+        with another axis cannot be kept apart and raises."""
+        parts = []
+        for ax in self.spec:
+            names = ax if isinstance(ax, tuple) else (ax,)
+            rest = tuple(a for a in names if a is not None and a not in axes)
+            if ax is not None and rest and len(rest) != len(names):
+                raise ValueError(f"{self.spec}: a dim split over {names} "
+                                 f"cannot keep its shard along {axes} alone")
+            parts.append(rest or None)
+        return Placement(self.mesh, P(*parts))
+
+    def reduce(self, full: torch.Tensor, skip: Sequence[str] = ()
+               ) -> torch.Tensor:
         """This rank's shard of ``full`` summed over every rank of the
         mesh: a reduce-scatter along each sharded dim, then an all-reduce
-        over the axes that do not shard the tensor."""
+        over the axes that do not shard the tensor, except ``skip`` (axes
+        along which each rank holds a different piece, summed by none)."""
         out = full
         for d, axes in self._dims():
             if self.mesh.size_of(axes) == 1:
@@ -144,7 +162,8 @@ class Placement:
             g = self.mesh.group(axes)
             out = g.reducescatter(out.movedim(d, 0)).movedim(0, d)
         rest = tuple(a for a in self.mesh.axis_names
-                     if a not in self.axes and self.mesh.shape[a] > 1)
+                     if a not in self.axes and a not in skip
+                     and self.mesh.shape[a] > 1)
         if rest:
             out = self.mesh.group(rest).allreduce(out)
         return out.contiguous()

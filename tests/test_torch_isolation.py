@@ -19,7 +19,8 @@ the modules it imported over the group, after serving, and none of
 them may be ``jax``, ``ml_dtypes`` or ``ray_tpu``. The same holds for a
 sharded training step: two rank processes of a ``RankPool``, spawned
 from a script whose controller holds the block, take a nano step on
-``{fsdp: 2}`` and on ``{tp: 2}`` and report their modules.
+``{fsdp: 2}``, on ``{tp: 2}`` and through the pipeline on ``{pp: 2}``
+and report their modules.
 """
 import ast
 import os
@@ -46,7 +47,8 @@ def test_no_jax_or_reference_imports_in_source():
                  "serve/handoff.py", "_private/ranks.py", "parallel/mesh.py",
                  "parallel/sharding.py", "collective/collective.py",
                  "ops/ring_attention.py", "train/checkpoint.py",
-                 "train/session.py"):
+                 "train/session.py", "parallel/pipeline.py",
+                 "parallel/multislice.py"):
         assert os.path.join(PKG, must) in files, must
     files.append(os.path.join(ROOT, "chip_smoke.py"))
     bad = []
@@ -186,7 +188,7 @@ _SHARDED = r"""
 import sys
 
 
-def rank_step(axes, backend):
+def rank_step(axes, backend, **kw):
     import dataclasses
 
     import numpy as np
@@ -195,7 +197,8 @@ def rank_step(axes, backend):
     from ray_tpu_torch.models import gpt
     from ray_tpu_torch.parallel import create_mesh
 
-    cfg = dataclasses.replace(gpt.CONFIGS["nano"], attn_backend=backend)
+    cfg = dataclasses.replace(gpt.CONFIGS["nano"], attn_backend=backend,
+                              **kw)
     mesh = create_mesh(axes, device="cpu")
     init, step, _, _ = gpt.make_train_step(cfg, mesh)
     state, m = step(init(seed=0), {"tokens": np.arange(
@@ -221,8 +224,10 @@ if __name__ == "__main__":
     from ray_tpu_torch._private.ranks import RankPool
 
     with RankPool(2, devices=("cpu",) * 2) as pool:
-        for axes, backend in (({"fsdp": 2}, "xla"), ({"tp": 2}, "flash")):
-            for modules in pool.run(rank_step, axes, backend):
+        for axes, backend, kw in (({"fsdp": 2}, "xla", {}),
+                                  ({"tp": 2}, "flash", {}),
+                                  ({"pp": 2}, "flash", {"pp_axis": "pp"})):
+            for modules in pool.run(rank_step, axes, backend, **kw):
                 assert "torch" in modules, modules
                 bad = sorted(set(modules) & set(BLOCKED))
                 assert not bad, bad
@@ -234,9 +239,10 @@ if __name__ == "__main__":
 
 
 def test_sharded_step_with_jax_and_reference_blocked(tmp_path):
-    """Two CPU ranks take a nano train step on {fsdp: 2} and on {tp: 2}
-    (flash, its plain versions here) from a controller that blocks JAX
-    and the reference; the ranks report the modules they imported."""
+    """Two CPU ranks take a nano train step on {fsdp: 2}, on {tp: 2} and
+    on {pp: 2} (flash, its plain versions here) from a controller that
+    blocks JAX and the reference; the ranks report the modules they
+    imported."""
     script = tmp_path / "sharded_child.py"
     script.write_text(_SHARDED)
     env = dict(os.environ)

@@ -9,9 +9,10 @@ within ``LOSS_TOL``, and the gathered parameters within the bound
 ``tests/test_torch_train.py`` holds the one-card step to (each within lr
 of the reference, the median within 1e-3 lr), against the reference and
 against the port on one rank. The flash backend (its plain versions on
-the CPU) trains on ``{fsdp:2,tp:2}`` as on one rank. MoE, pipeline and
-expert axes, an idle sp axis and widths tp does not divide are refused
-before any collective.
+the CPU) trains on ``{fsdp:2,tp:2}`` as on one rank. MoE with tp, MoE in
+a pipeline stage, an ep axis under a dense model, an idle sp axis and
+widths tp does not divide are refused before any collective (pipelines
+and MoE meshes: ``test_torch_pipeline.py``, ``test_torch_moe_parallel.py``).
 
 JAX is imported inside the tests: the rank processes import this module
 to find their functions and need only torch.
@@ -152,9 +153,11 @@ def test_flash_backend_sharded(pool4, reference):
 
 
 @pytest.mark.parametrize("cfg_kw,axes,err,match", [
-    (dict(n_experts=4), {"dp": 2}, NotImplementedError, "slice 10"),
-    (dict(pp_axis="pp"), {"pp": 2}, NotImplementedError, "slice 10"),
-    ({}, {"ep": 2}, NotImplementedError, "slice 10"),
+    (dict(n_experts=4), {"tp": 2}, NotImplementedError,
+     "MoE on a mesh with"),
+    (dict(pp_axis="pp", n_experts=4), {"pp": 2}, NotImplementedError,
+     "MoE inside a pipeline stage"),
+    ({}, {"ep": 2}, ValueError, "shard nothing"),
     ({}, {"sp": 2}, ValueError, "ring or ulysses"),
     ({}, {"tp": 4}, ValueError, "not divisible by tp=4"),
     (dict(attn_backend="ring", sp_axis="sp"), {"dp": 2}, ValueError,
