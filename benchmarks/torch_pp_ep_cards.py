@@ -2,6 +2,7 @@
 """Pipeline and expert parallelism across cards, one card per rank (NCCL).
 
     python3 benchmarks/torch_pp_ep_cards.py [--steps 5] [--warm 2]
+        [--meshes ep2-tp2 dp2-sp2 ...]
 
 GPT-2 small (``CONFIGS["small"]``: bf16 compute, f32 master weights, the
 reference's draw for seed 0, ``remat="dots"``, flash) trains on one
@@ -11,13 +12,18 @@ four ranks of a ``RankPool``, one card each: the pipeline on ``{pp:4}``
 at 8 microbatches, ``{pp:2,tp:2}``, ``{dp:2,pp:2}`` and ``{pp:2,sp:2}``
 (ring attention inside a stage), each at the default ``2 * pp``
 microbatches otherwise; then GPT-2 small with 8 experts, top-2, on one
-card, ``{ep:4}`` and ``{dp:2,ep:2}``. For each: the first step's loss
+card, ``{ep:4}``, ``{dp:2,ep:2}``, ``{ep:2,tp:2}`` (each tp rank
+``d_ff/2`` of every local expert) and ``{dp:2,sp:2}`` with ring
+attention (each sp rank a sequence chunk of every row, routed in the
+global token order). For each: the first step's loss
 within ``FIRST_LOSS_TOL`` of one card's, every loss finite and the last
 below the first, step ms, tok/s, MFU (FLOPs a step over 4 x 989
 TFLOP/s: bench.py's ``6 N + 12 L S d`` a token for the dense model, the
 MoE step's count written out as ``chip_smoke.train_phase`` does), peak
 memory per card, K2/K3 launches per rank and the collectives a step by
-group on rank 0. Needs four cards; prints every card's name and power
+group on rank 0. ``--meshes`` runs only the named meshes (axes and
+sizes joined, e.g. ``pp2-tp2``) and the one-card runs they are held
+to. Needs four cards; prints every card's name and power
 limit, one JSON line per run, and ends with ``{"ok": true, ...}``.
 """
 import argparse
@@ -39,7 +45,10 @@ MESHES = [({"pp": 4}, {"pp_axis": "pp", "num_microbatches": 8}),
           ({"dp": 2, "pp": 2}, {"pp_axis": "pp"}),
           ({"pp": 2, "sp": 2}, {"pp_axis": "pp", "sp_axis": "sp"}),
           ({"ep": 4}, {"n_experts": EXPERTS}),
-          ({"dp": 2, "ep": 2}, {"n_experts": EXPERTS})]
+          ({"dp": 2, "ep": 2}, {"n_experts": EXPERTS}),
+          ({"ep": 2, "tp": 2}, {"n_experts": EXPERTS}),
+          ({"dp": 2, "sp": 2}, {"n_experts": EXPERTS, "attn_backend": "ring",
+                                "sp_axis": "sp"})]
 #: One card's first loss against a mesh's: the same weights and batch,
 #: bf16 products of other shapes (microbatches, row halves, tp partials
 #: rounded to bf16 before their sum, as the reference does) averaged
@@ -47,11 +56,15 @@ MESHES = [({"pp": 4}, {"pp_axis": "pp", "num_microbatches": 8}),
 FIRST_LOSS_TOL = 5e-5
 
 
+def _name(axes) -> str:
+    return "-".join(f"{k}{v}" for k, v in axes.items())
+
+
 def _cfg(kw):
     from ray_tpu_torch.models import gpt
 
     return dataclasses.replace(gpt.CONFIGS["small"], remat="dots",
-                               attn_backend="flash", **kw)
+                               **{"attn_backend": "flash", **kw})
 
 
 def _flops_step(cfg) -> float:
@@ -96,7 +109,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--warm", type=int, default=2)
+    ap.add_argument("--meshes", nargs="*", default=None,
+                    choices=[_name(a) for a, _ in MESHES])
     args = ap.parse_args()
+    meshes = [(a, kw) for a, kw in MESHES
+              if args.meshes is None or _name(a) in args.meshes]
 
     import torch
 
@@ -119,6 +136,8 @@ def main() -> int:
 
     one = {}
     for kw in ({}, {"n_experts": EXPERTS}):
+        if not any(("n_experts" in m) == bool(kw) for _, m in meshes):
+            continue
         cfg = _cfg(kw)
         init, step, _, _ = gpt.make_train_step(cfg, device="cuda")
         state, row = _steps(step, init(seed=0),
@@ -133,7 +152,7 @@ def main() -> int:
         one[bool(kw)] = row
     rows, bad = list(one.values()), []
     with RankPool(n) as pool:
-        for axes, kw in MESHES:
+        for axes, kw in meshes:
             res = pool.run(_rank_bench, axes, kw, args.warm, args.steps)
             ms = max(r["step_ms"] for r in res)
             losses = res[0]["losses"]

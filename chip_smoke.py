@@ -942,7 +942,7 @@ def _par_cfg(n_layer: int, dtype: str, cfg_kw=None):
 
     return dataclasses.replace(gpt.CONFIGS["small"], n_layer=n_layer,
                                dtype=getattr(torch, dtype), remat="dots",
-                               attn_backend="flash", **(cfg_kw or {}))
+                               **{"attn_backend": "flash", **(cfg_kw or {})})
 
 
 # Rank 0's one-rank references for the exactness checks, by name. They
@@ -951,11 +951,53 @@ def _par_cfg(n_layer: int, dtype: str, cfg_kw=None):
 _REFERENCES: dict = {}
 
 
-def _rank_reference(name, cfg_kw=None):
+class _RouteLog:
+    """Records an MoE model's routing during one step of a rank's run:
+    the first ``n_layer`` calls of ``moe.route`` (the forward's layers
+    in order; a remat recompute repeats them later in the step) as
+    (expert ``[k, T]``, router probabilities ``[T, E]``, keep ``[k, T]``)
+    on the host."""
+
+    def __init__(self, n_layer: int):
+        self.n_layer, self.calls = n_layer, []
+
+    def __enter__(self):
+        from ray_tpu_torch.models import moe
+
+        self._real = real = moe.route
+
+        def route(probs, *args, **kwargs):
+            r = real(probs, *args, **kwargs)
+            if len(self.calls) < self.n_layer:
+                self.calls.append((r.expert.cpu(),
+                                   probs.detach().float().cpu(),
+                                   r.keep.cpu()))
+            return r
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        from ray_tpu_torch.models import moe
+
+        moe.route = self._real
+
+
+def _step_logged(step, state, batch, n_layer, log_routes):
+    """``step(state, batch)`` and, with ``log_routes``, its routes."""
+    if not log_routes:
+        return step(state, batch) + (None,)
+    with _RouteLog(n_layer) as rec:
+        state, m = step(state, batch)
+    return state, m, rec.calls
+
+
+def _rank_reference(name, cfg_kw=None, routes_at=None):
     """On rank 0 (the other rank idles): 3 f32 steps of the 2-layer model
     on one rank on the card (no mesh) from the seed-0 weights, at
     ``PAR_EXACT_B`` x ``PAR_EXACT_S``; keeps its parameters as
-    ``_REFERENCES[name]`` and returns (losses, moe_aux terms)."""
+    ``_REFERENCES[name]`` and returns (losses, moe_aux terms, the routes
+    of step ``routes_at`` (0-based) or ``None``)."""
     import torch
     import torch.distributed as dist
 
@@ -968,27 +1010,30 @@ def _rank_reference(name, cfg_kw=None):
     init, step, _, _ = gpt.make_train_step(cfg, device="cuda")
     state = init(seed=0)
     batch = _train_batch(cfg, PAR_EXACT_B, PAR_EXACT_S, 5, "cuda")
-    losses, auxs = [], []
-    for _ in range(3):
-        state, m = step(state, batch)
+    losses, auxs, routes = [], [], None
+    for i in range(3):
+        state, m, got = _step_logged(step, state, batch, cfg.n_layer,
+                                     i == routes_at)
+        routes = got or routes
         losses.append(float(m["loss"]))
         auxs.append(float(m.get("moe_aux", 0.0)))
     _REFERENCES[name] = {k: v.detach() for k, v in state["params"].items()}
     del state
     torch.cuda.empty_cache()
-    return losses, auxs
+    return losses, auxs, routes
 
 
 def _rank_steps(axes, n_layer, dtype, B, S, warm, steps, reference=None,
-                cfg_kw=None):
+                cfg_kw=None, routes_at=None):
     """On each rank of the pool: ``make_train_step`` over ``axes``, the
     seed-0 weights, ``warm`` steps, then ``steps`` steps timed with the
     flash counts zeroed just before; returns the losses (and an MoE
     model's ``moe_aux`` terms), this rank's launches, step ms, peak
     memory, its groups' op counts and (rank 0, with ``reference``) each
     gathered parameter's max and median |diff| from
-    ``_REFERENCES[reference]``. ``cfg_kw`` changes the config (a
-    pipeline, an MoE model)."""
+    ``_REFERENCES[reference]``, and with ``routes_at`` the routes of that
+    step (0-based; :class:`_RouteLog`). ``cfg_kw`` changes the config (a
+    pipeline, an MoE model, sequence-parallel attention)."""
     import torch
     import torch.distributed as dist
 
@@ -1004,23 +1049,28 @@ def _rank_steps(axes, n_layer, dtype, B, S, warm, steps, reference=None,
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t_init
     batch = _train_batch(cfg, B, S, 5, "cuda")
-    losses, auxs = [], []
+    losses, auxs, routes = [], [], None
     t_steps = time.perf_counter()
-    for _ in range(warm):
-        state, m = step(state, batch)
+    for i in range(warm):
+        state, m, got = _step_logged(step, state, batch, n_layer,
+                                     i == routes_at)
+        routes = got or routes
         losses.append(float(m["loss"]))
         auxs.append(float(m.get("moe_aux", 0.0)))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.launches.update(dict.fromkeys(fa.launches, 0))
     t0 = time.perf_counter()
-    for _ in range(steps):
-        state, m = step(state, batch)
+    for i in range(warm, warm + steps):
+        state, m, got = _step_logged(step, state, batch, n_layer,
+                                     i == routes_at)
+        routes = got or routes
         losses.append(float(m["loss"]))
         auxs.append(float(m.get("moe_aux", 0.0)))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     out = {"losses": losses, "moe_aux": auxs, "launches": dict(fa.launches),
+           "routes": routes,
            "step_ms": dt / steps * 1e3,
            "peak": torch.cuda.max_memory_allocated(),
            "ops": {"/".join(k): dict(g.stats)
@@ -1196,29 +1246,85 @@ def parallel_train_phase(card: str) -> list:
 # bound (2 lr a step, medians 1e-3 lr).
 PP_EP_LOSS_RTOL = 1e-6
 # moe_aux after the first step: the weights of the two runs differ by
-# AdamW's lr-sized moves on near-zero gradients (see PR 9's bound above),
-# and a token whose top-1 probabilities are that close to a tie changes
-# its top-1 expert; one such flip moves the term by E * (p_a - p_b) / T
-# (T = 2048 here). PR 10's first chip run: {dp:2} at capacity factor 0.5
-# 2.43e-6 relative at step 2 (loss 9e-8), step 1 exact.
-MOE_AUX_DRIFT_RTOL = 1e-4
+# AdamW's moves on near-zero gradients whose f32 sums run in another
+# order (see the parameter bound above). Counted on the card: at step 2
+# no route differs from one rank's, in expert or in kept/dropped, on
+# {dp:2}, {tp:2}, ring {sp:2} or {ep:2}, at capacity factor 1.25 or 0.5;
+# yet moe_aux parts by up to 2.43e-6 relative at 0.5 ({ep:2}, whose sums
+# run in one rank's order, by 0), so the drift is the weights', not a
+# flipped route: 1e-6 would fail, 1e-5 holds it with room.
+MOE_AUX_DRIFT_RTOL = 1e-5
 PP_EXACT_MICROBATCHES = (2, 4)
 MOE_EXACT_MESHES = ({"ep": 2}, {"dp": 2})
 MOE_EXACT_FACTORS = (1.25, 0.5)
 PP_FULL_MICROBATCHES = 4
+# MoE with tensor and sequence parallelism, on the same two
+# ranks: {tp:2} (each rank d_ff/2 of every expert, the down product's f32
+# partials summed before the cast) and ring {sp:2} (each rank a sequence
+# chunk of every row, slots in the global row-major token order), held
+# to one rank at f32 within PAR_LOSS_RTOL; {tp:2} at full depth.
+MOE_TP_SP_MESHES = (({"tp": 2}, {}),
+                    ({"sp": 2}, {"attn_backend": "ring", "sp_axis": "sp"}))
+MOE_ROUTES_AT = 1                  # step 2: the first after an update
+# Full-depth MoE {tp:2}: both ranks hold every row, so each would keep
+# B=32's f32 logits, their log-softmax and its gradient (6.1 GiB each)
+# beside ~25 GiB of weights and activations; two such ranks overflow
+# the one card they share (chip run 2: out of memory). The reference's
+# chunked cross-entropy (cfg.loss_chunk, the same loss) keeps one
+# 256-position chunk of logits live.
+MOE_TP_LOSS_CHUNK = 256
 
 
-def _hold_to_one(label, res, ref, loss_rtol, moe=False) -> None:
+def _route_flips(axes, one, res) -> dict:
+    """How many (choice, token) routes of the logged step differ between
+    one rank (``one``: :class:`_RouteLog` calls) and the mesh's ranks
+    (reassembled into the global token order: rows over dp, sequence
+    chunks over sp, whole on the other axes): their expert (``flips``),
+    and whether the pair is kept or dropped (``drops``, the global
+    slots' test); and the smallest and largest gap, in one rank's router
+    probabilities, between the two experts of a flipped route."""
+    import torch
+
+    def whole(parts, k):
+        if "dp" in axes:
+            return torch.cat(parts, 1), 0
+        if "sp" in axes:
+            return torch.cat([p.view(k, PAR_EXACT_B, -1) for p in parts],
+                             2).reshape(k, -1), 0
+        return parts[0], sum(int((p != parts[0]).sum()) for p in parts[1:])
+
+    flips, drops, gaps, pairs = 0, 0, [], 0
+    for layer, (want, probs, kept) in enumerate(one):
+        k = want.shape[0]
+        got, apart = whole([r["routes"][layer][0] for r in res], k)
+        got_kept, apart_kept = whole([r["routes"][layer][2] for r in res],
+                                     k)
+        diff = got != want
+        flips += int(diff.sum()) + apart      # tp/ep ranks must agree too
+        drops += int((got_kept != kept).sum()) + apart_kept
+        pairs += want.numel()
+        if diff.any():
+            j, t = diff.nonzero(as_tuple=True)
+            gaps += (probs[t, want[j, t]] - probs[t, got[j, t]]).abs(
+            ).tolist()
+    return {"flips": flips, "drops": drops, "of": pairs,
+            "gap": (min(gaps), max(gaps)) if gaps else None}
+
+
+def _hold_to_one(label, res, ref, loss_rtol, moe=False, flash=True,
+                 axes=None) -> None:
     """(a): every rank's losses (and the first step's ``moe_aux``) within
     ``loss_rtol`` relative of one rank's on the card (``ref``: losses,
-    moe_aux terms, from :func:`_rank_reference`), later ``moe_aux`` terms
-    within ``MOE_AUX_DRIFT_RTOL``, every gathered parameter within 2 lr a
-    step and its median within 1e-3 lr (rank 0's ``param_diff``), and
-    every flash kernel launched on every rank."""
+    moe_aux terms, routes, from :func:`_rank_reference`), later
+    ``moe_aux`` terms within ``MOE_AUX_DRIFT_RTOL``, every gathered
+    parameter within 2 lr a step and its median within 1e-3 lr (rank 0's
+    ``param_diff``), and (``flash``) every flash kernel launched on every
+    rank. With routes logged on both sides, prints how many routes of
+    that step differ from one rank's on the mesh ``axes``."""
     from ray_tpu_torch.models import gpt
 
     lr = gpt.ADAMW_DEFAULTS["lr"]
-    ref_losses, ref_auxs = ref
+    ref_losses, ref_auxs, ref_routes = ref
     rel = max(abs(a - b) / abs(b) for r in res
               for a, b in zip(r["losses"], ref_losses))
     drift = 0.0
@@ -1240,11 +1346,18 @@ def _hold_to_one(label, res, ref, loss_rtol, moe=False) -> None:
         f"(tolerance {1e-3 * lr:.3g}); K2/K3 launches per rank "
         f"{[r['launches'] for r in res]}; rank 0's seconds "
         f"{res[0]['seconds']}")
+    if ref_routes and res[0]["routes"]:
+        flips = _route_flips(axes, ref_routes, res)
+        log(f"{label}: routes at step {MOE_ROUTES_AT + 1} differing from "
+            f"one rank's: expert {flips['flips']}, kept/dropped "
+            f"{flips['drops']}, of {flips['of']} (choice, token) pairs "
+            f"over the layers; smallest/largest probability gap between "
+            f"the two experts of a differing route: {flips['gap']}")
     if not rel <= loss_rtol or not drift <= MOE_AUX_DRIFT_RTOL \
             or diffs[worst][0] > 2 * 3 * lr or med > 1e-3 * lr:
         raise AssertionError(f"{label}: the f32 step disagrees with one "
                              f"rank")
-    if not all(all(r["launches"].values()) for r in res):
+    if flash and not all(all(r["launches"].values()) for r in res):
         raise AssertionError(f"{label}: a rank skipped a flash kernel")
 
 
@@ -1290,6 +1403,11 @@ def pipeline_ep_phase(card: str) -> list:
                 ({"ep": 2}, {"n_experts": MOE_EXPERTS},
                  {"flash_attention_fwd": 2 * L * steps,
                   "flash_attention_bwd_dkdv": L * steps,
+                  "flash_attention_bwd_dq": L * steps}),
+                ({"tp": 2}, {"n_experts": MOE_EXPERTS,
+                             "loss_chunk": MOE_TP_LOSS_CHUNK},
+                 {"flash_attention_fwd": 2 * L * steps,
+                  "flash_attention_bwd_dkdv": L * steps,
                   "flash_attention_bwd_dq": L * steps}))
         counts = {}
         for axes, kw, want in full:
@@ -1326,6 +1444,14 @@ def pipeline_ep_phase(card: str) -> list:
                                      f"{want}")
             counts[tuple(axes)] = {n: sum(r["launches"][n] for r in res)
                                    for n in want}
+            if "n_experts" in kw:
+                per_step = [{n: c / steps for n, c in r["launches"].items()}
+                            for r in res]
+                log(f"pipeline/ep (b) {axes} MoE: K2/K3 launches a step on "
+                    f"each rank {per_step}, tok/s "
+                    f"{TRAIN_B * TRAIN_S / ms * 1e3:.1f}, step {ms:.3f} ms, "
+                    f"peak GiB per rank "
+                    f"{[round(r['peak'] / 2**30, 3) for r in res]} [{card}]")
         # (a) exactness, f32, against one rank on the card
         ref = pool.run(_rank_reference, "dense")[0]
         for m in PP_EXACT_MICROBATCHES:
@@ -1339,15 +1465,28 @@ def pipeline_ep_phase(card: str) -> list:
         for cf in MOE_EXACT_FACTORS:
             kw = {"n_experts": MOE_EXPERTS, "capacity_factor": cf,
                   "moe_aux_coef": 1.0}
-            ref = pool.run(_rank_reference, f"moe{cf}", kw)[0]
+            ref = pool.run(_rank_reference, f"moe{cf}", kw,
+                           MOE_ROUTES_AT)[0]
             for axes in MOE_EXACT_MESHES:
                 res = pool.run(_rank_steps, axes, 2, "float32", PAR_EXACT_B,
-                               PAR_EXACT_S, 0, 3, f"moe{cf}", kw)
+                               PAR_EXACT_S, 0, 3, f"moe{cf}", kw,
+                               MOE_ROUTES_AT)
                 _hold_to_one(f"pipeline/ep (a) {axes} MoE {MOE_EXPERTS} "
                              f"experts top-2 capacity factor {cf} f32, 2 "
                              f"layers [{time.perf_counter() - t0:.1f} s into "
                              f"the phase]", res, ref, PP_EP_LOSS_RTOL,
-                             moe=True)
+                             moe=True, axes=axes)
+            # MoE x tp and MoE x sp: the global token order
+            for axes, extra in MOE_TP_SP_MESHES:
+                res = pool.run(_rank_steps, axes, 2, "float32", PAR_EXACT_B,
+                               PAR_EXACT_S, 0, 3, f"moe{cf}",
+                               {**kw, **extra}, MOE_ROUTES_AT)
+                at = time.perf_counter() - t0
+                _hold_to_one(f"pipeline/ep (a) {axes} {extra} MoE "
+                             f"{MOE_EXPERTS} experts top-2 capacity factor "
+                             f"{cf} f32, 2 layers [{at:.1f} s into the "
+                             f"phase]", res, ref, PAR_LOSS_RTOL, moe=True,
+                             axes=axes, flash="sp" not in axes)
         # (d) multislice: two slices of one rank each
         reports = pool.run(slice_rank, 2, 1, "cuda:0")
         log(f"pipeline/ep (d) [{time.perf_counter() - t0:.1f} s into the "
@@ -1374,6 +1513,152 @@ def pipeline_ep_phase(card: str) -> list:
     del qs, k, v, do
     torch.cuda.empty_cache()
     return records
+
+
+# ResNet. No TPU kernel is on this path: the reference's
+# convolutions are lax.conv_general_dilated, the port's cuDNN's.
+# (i) ResNet-18 at width 16 on 64x64 images, f32 with TF32 off inside the
+# comparison only, card vs CPU: |logits| < ~3 and the two sum each conv
+# in another order (the CPU tests measure 2e-6 against the reference);
+# the batch-norm statistics are f32 means of up to 2^15 terms a channel.
+RESNET_TINY = dict(depth=18, num_classes=10, width=16)
+RESNET_LOGIT_ATOL = 1e-4
+RESNET_STAT_RTOL, RESNET_STAT_ATOL = 1e-4, 1e-5
+# (ii) ResNet-50 at full width (1000 classes, bf16, the seed-0 draw) on
+# 224x224 NHWC images through make_predictor at the serving buckets
+# (the reference's serve/batching.default_buckets(16)), float and uint8
+# images; the bf16 logits held against an f32 run of the same weights on
+# the card: each bf16 rounding of ~50 conv/BN outputs is 2^-9 relative,
+# so the logits may part by a few percent of their range; bound 5 %.
+RESNET_BUCKETS = (1, 2, 4, 8, 16)
+RESNET_BF16_REL = 0.05
+RESNET_TRAIN_B = 32
+
+
+def resnet_phase(card: str) -> None:
+    """ResNet (``ray_tpu_torch.models.resnet``): (i) ResNet-18 width 16
+    at f32, ``train=False`` and ``train=True`` logits and every updated
+    running statistic, card (TF32 off) against the CPU; (ii) ResNet-50
+    at full width, bf16: p50 ms a batch (host images in, logits out,
+    synchronised) at each bucket for float and uint8 images, images/s at
+    16, the bf16 logits against an f32 run on the card, and one
+    ``train=True`` forward + backward at B=32 with finite gradients (ms,
+    peak memory). No TPU kernel runs here: cuDNN convolutions."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import resnet
+
+    t0 = time.perf_counter()
+    tiny = resnet.ResNetConfig(**RESNET_TINY, dtype=torch.float32)
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((4, 64, 64, 3)).astype(
+        np.float32) * 2 + 0.5)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = resnet.init_params(tiny, 0, device=dev)
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            with torch.no_grad():
+                logits = resnet.forward(params, x.to(dev), tiny)
+                tl, new = resnet.forward(params, x.to(dev), tiny, train=True)
+        out[dev] = (logits.cpu(), tl.cpu(), [t.cpu() for t in
+                                             resnet.leaves(new)],
+                    [t.cpu() for t in resnet.leaves(params)])
+    (inf_c, train_c, new_c, p_c), (inf_g, train_g, new_g, p_g) = \
+        out["cpu"], out["cuda"]
+    if not all(torch.equal(a, b) for a, b in zip(p_c, p_g)):
+        raise AssertionError("resnet (i): the card's init_params differ "
+                             "from the CPU's")
+    err = max(_abs_err(inf_g, inf_c), _abs_err(train_g, train_c))
+    stat = max(float(((a - b).abs() - RESNET_STAT_RTOL * b.abs()).max())
+               for a, b in zip(new_g, new_c))
+    log(f"resnet (i) ResNet-18 width 16, 64x64, f32 [{card}]: init_params "
+        f"on the card bit-equal to the CPU's; logits (train False/True) "
+        f"card (TF32 off) vs CPU max |diff| {err:.3g} (tolerance "
+        f"{RESNET_LOGIT_ATOL}); running statistics: largest |diff| beyond "
+        f"{RESNET_STAT_RTOL} relative {stat:.3g} (tolerance "
+        f"{RESNET_STAT_ATOL}); no TPU kernel on this path (cuDNN convs)")
+    if not err <= RESNET_LOGIT_ATOL or not stat <= RESNET_STAT_ATOL:
+        raise AssertionError("resnet (i): the card disagrees with the CPU")
+
+    # (ii) ResNet-50 at full width
+    cfg = resnet.ResNetConfig(depth=50)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter()
+    params = resnet.init_params(cfg, 0)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t_init
+    imgs = rng.standard_normal((max(RESNET_BUCKETS), 224, 224, 3)).astype(
+        np.float32)
+    u8 = rng.integers(0, 256, imgs.shape, dtype=np.uint8)
+    times = {}
+    for kind, src in (("float", imgs), ("uint8", u8)):
+        predict = resnet.make_predictor(cfg, params,
+                                        uint8_input=kind == "uint8")
+        for b in RESNET_BUCKETS:
+            batch = src[:b]
+            for _ in range(3):
+                predict(batch).cpu()
+            ms = []
+            for _ in range(20):
+                t = time.perf_counter()
+                got = predict(batch).cpu()
+                ms.append((time.perf_counter() - t) * 1e3)
+            if got.shape != (b, cfg.num_classes) or \
+                    not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"resnet (ii) {kind} B={b}: logits "
+                                     f"{tuple(got.shape)}, not all finite")
+            times[(kind, b)] = p50(ms)
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        want = resnet.make_predictor(f32, params)(imgs).cpu()
+    got = resnet.make_predictor(cfg, params)(imgs).cpu()
+    rel = _abs_err(got, want) / float(want.abs().max())
+    top1 = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    # one train=True forward + backward at B=32
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    leaves = resnet.leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    xb = torch.from_numpy(rng.standard_normal(
+        (RESNET_TRAIN_B, 224, 224, 3)).astype(np.float32)).cuda()
+    train_ms = []
+    for _ in range(3):
+        for t in leaves:
+            t.grad = None
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, _ = resnet.forward(params, xb, cfg, train=True)
+        ((logits - 1.0) ** 2).mean().backward()
+        torch.cuda.synchronize()
+        train_ms.append((time.perf_counter() - t) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    finite = all(bool(torch.isfinite(t.grad).all()) for t in leaves
+                 if t.grad is not None)
+    n_grads = sum(t.grad is not None for t in leaves)
+    log(f"resnet (ii) ResNet-50 full width ({cfg.num_params()} params, "
+        f"{cfg.num_classes} classes, bf16, 224x224 NHWC, seed-0 weights "
+        f"drawn on the "
+        f"card in {t_init:.3f} s) [{card}]: p50 ms a batch (host images "
+        f"in, logits on the host, 20 calls after 3) float "
+        f"{ {b: round(times[('float', b)], 3) for b in RESNET_BUCKETS} }, "
+        f"uint8 { {b: round(times[('uint8', b)], 3) for b in RESNET_BUCKETS} }"
+        f"; images/s at 16: float "
+        f"{16e3 / times[('float', 16)]:.1f}, uint8 "
+        f"{16e3 / times[('uint8', 16)]:.1f}; bf16 logits vs f32 (TF32 off) "
+        f"max |diff| / max |f32| = {rel:.4g} (tolerance {RESNET_BF16_REL}),"
+        f" top-1 agreement {top1:.3f}; train=True forward+backward B="
+        f"{RESNET_TRAIN_B}: ms {[round(m, 3) for m in train_ms]}, peak "
+        f"{peak / 2**30:.3f} GiB, {n_grads} gradients all finite: {finite}"
+        f"; no TPU kernel on this path (cuDNN convs, channels-last "
+        f"activations) [{time.perf_counter() - t0:.1f} s in the phase]")
+    if not rel <= RESNET_BF16_REL or not finite or n_grads == 0:
+        raise AssertionError("resnet (ii): bf16 logits or gradients wrong")
+    del params, leaves, xb
+    torch.cuda.empty_cache()
 
 
 def serve(params, cfg, reqs, *, device, attn_kernel=None, seeds=None,
@@ -2887,8 +3172,12 @@ def main() -> int:
     # ---- 7c. sharded training: two ranks on this card (gloo)
     records += parallel_train_phase(card)
 
-    # ---- 7d. pipeline, expert parallelism, multislice: two ranks (gloo)
+    # ---- 7d. pipeline, expert parallelism (and MoE x tp, MoE x sp),
+    # multislice: two ranks (gloo)
     records += pipeline_ep_phase(card)
+
+    # ---- 8. ResNet: ResNet-18 card vs CPU, ResNet-50 serving and a step
+    resnet_phase(card)
 
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {

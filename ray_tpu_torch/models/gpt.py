@@ -62,11 +62,14 @@ FFN of :mod:`ray_tpu_torch.models.moe` (router, top-k gating with a
 static capacity, batched expert products), as the reference's
 ``_block`` does; :func:`forward` sums the blocks' load-balance terms and
 :func:`loss_fn` adds ``moe_aux_coef`` times that sum. On a mesh MoE runs
-over dp, fsdp and the expert axis ``cfg.ep_axis``: rows split over dp x
-fsdp and replicated over ep, each ep rank holding ``E/ep`` experts;
-capacity, slots and the balance term count the global batch, as the
-reference's GSPMD step does (:func:`ray_tpu_torch.models.moe.moe_ffn`).
-MoE with tp, sp or pp raises.
+over dp, fsdp, tp, sp (ring or Ulysses attention) and the expert axis
+``cfg.ep_axis``: rows split over dp x fsdp, sequence chunks over sp,
+both replicated over ep and tp; each ep rank holds ``E/ep`` experts and
+each tp rank ``d_ff/tp`` of every expert's hidden units; capacity,
+slots and the balance term count the global batch in the reference's
+token order, as its GSPMD step does
+(:func:`ray_tpu_torch.models.moe.moe_ffn`). MoE in a pipeline raises,
+as in the reference.
 """
 from __future__ import annotations
 
@@ -394,8 +397,9 @@ class _Par:
     (``None`` at tp=1), the sequence-parallel group with this rank's
     index along it (``None`` at sp=1, or off a mesh), the pipeline group
     and its microbatch count (``None`` off a pipeline), and for MoE the
-    expert-parallel group and the group over the data axes (``None``
-    where the axis has one rank)."""
+    expert-parallel group and the routing group over the data axes and
+    sp (``None`` where the axes have one rank) with each routing rank's
+    (row chunk, sequence chunk) in ``blocks``."""
 
     tp: Any = None
     sp: Any = None
@@ -404,12 +408,14 @@ class _Par:
     microbatches: int = 0
     ep: Any = None
     data: Any = None
+    blocks: Optional[Tuple[Tuple[int, int], ...]] = None
 
     @property
     def pieces(self) -> bool:
         """Whether a block holds collectives, so that remat must wrap
         its pieces between them rather than the whole block."""
-        return self.tp is not None or self.sp is not None
+        return any(g is not None for g in (self.tp, self.sp, self.ep,
+                                           self.data))
 
 
 _SOLO = _Par()
@@ -461,10 +467,9 @@ def _check_pp(cfg: GPTConfig, mesh) -> None:
 
 def _check(cfg: GPTConfig, mesh) -> None:
     """Whether ``cfg`` runs on ``mesh`` (``gpt.py:376-423``'s checks):
-    dp/fsdp/tp/sp for a dense model; a pipeline over ``cfg.pp_axis``
-    with tp or sp inside a stage; MoE over dp/fsdp and ``cfg.ep_axis``.
-    Raises where the reference raises, and for MoE with tp or sp, which
-    the reference runs under GSPMD and the port does not yet."""
+    dp/fsdp/tp/sp for a dense model, and for MoE with ``cfg.ep_axis``
+    beside them; a pipeline over ``cfg.pp_axis`` with tp or sp inside a
+    stage (dense only). Raises where the reference raises."""
     sizes = mesh.shape
     seq = cfg.attn_backend in ("ring", "ulysses")
     if seq and (not cfg.sp_axis or cfg.sp_axis not in sizes):
@@ -477,22 +482,15 @@ def _check(cfg: GPTConfig, mesh) -> None:
         return _check_pp(cfg, mesh)
     tp = sizes.get("tp", 1)
     if cfg.n_experts > 0:
-        gap = [a for a in ("tp", cfg.sp_axis or "sp")
-               if sizes.get(a, 1) > 1]
-        if gap:
-            raise NotImplementedError(
-                f"MoE on a mesh with {gap}: the reference runs MoE x tp and "
-                f"MoE x sp under GSPMD; the port runs MoE over dp, fsdp "
-                f"and {cfg.ep_axis!r} only (not yet ported)")
         ep = sizes.get(cfg.ep_axis, 1) if cfg.ep_axis else 1
         if cfg.n_experts % ep:
             raise ValueError(f"n_experts={cfg.n_experts} not divisible by "
                              f"{cfg.ep_axis}={ep}")
-    elif cfg.n_head % tp or cfg.d_ff % tp:
+    if cfg.n_head % tp or cfg.d_ff % tp:
         raise ValueError(f"n_head={cfg.n_head} / d_ff={cfg.d_ff} not "
                          f"divisible by tp={tp}")
     used = ("dp", "fsdp", "tp") if cfg.n_experts == 0 else \
-        ("dp", "fsdp", cfg.ep_axis)
+        ("dp", "fsdp", "tp", cfg.ep_axis)
     extra = [a for a, n in sizes.items() if n > 1 and a not in used
              and not (seq and a == cfg.sp_axis)]
     if extra:
@@ -524,12 +522,22 @@ def _par(cfg: GPTConfig, mesh) -> _Par:
         return _Par(tp=group("tp"), sp=group(sp_ax), sp_axis=sp_ax,
                     pp=mesh.group(cfg.pp_axis),
                     microbatches=cfg.num_microbatches)
-    data = tuple(a for a in ("dp", "fsdp") if sizes.get(a, 1) > 1)
-    moe = cfg.n_experts > 0 and mesh.size > 1
-    return _Par(tp=group("tp"), sp=group(cfg.sp_axis) if seq else None,
-                sp_axis=cfg.sp_axis if seq else None,
-                ep=group(_ep_axis(cfg, mesh)) if moe else None,
-                data=mesh.group(data) if moe and data else None)
+    sp = group(cfg.sp_axis) if seq else None
+    par = _Par(tp=group("tp"), sp=sp, sp_axis=cfg.sp_axis if seq else None)
+    if cfg.n_experts == 0 or mesh.size == 1:
+        return par
+    # MoE routes over the ranks that hold other tokens: rows over the data
+    # axes, and under sp each row's sequence chunks.
+    rows = tuple(a for a in ("dp", "fsdp") if sizes.get(a, 1) > 1)
+    axes = rows + ((cfg.sp_axis,) if sp is not None else ())
+    data = blocks = None
+    if axes:
+        data = mesh.group(axes)
+        at = [mesh.ranks.index(g) for g in data.ranks]
+        blocks = tuple((mesh.index(rows, i), mesh.coords(i)[cfg.sp_axis]
+                        if sp is not None else 0) for i in at)
+    return dataclasses.replace(par, ep=group(_ep_axis(cfg, mesh)),
+                               data=data, blocks=blocks)
 
 
 def _attention(q, k, v, cfg: GPTConfig, par: _Par = _SOLO) -> torch.Tensor:
@@ -582,21 +590,23 @@ class _ReduceFromTP(torch.autograd.Function):
 
 
 def _ffn(h: torch.Tensor, p: Params, cfg: GPTConfig, aux: bool = True,
-         group=None, par: _Par = _SOLO
+         group=None, par: _Par = _SOLO, piece: Optional[Callable] = None
          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The block's FFN on the normed ``h`` → (y, load-balance term):
     the MoE FFN when ``cfg.n_experts > 0`` (its term ``None`` with
-    ``aux=False``; on a mesh over ``par.ep`` and ``par.data``), else the
-    dense GELU MLP (term ``None``). Under a tensor-parallel ``group``
-    (dense only) ``w1`` is this rank's column slice and ``w2`` reduces
-    through :func:`_mm_row`."""
+    ``aux=False``; on a mesh over ``par.ep``, ``par.tp`` and the routing
+    group ``par.data``, each piece between collectives run by ``piece``),
+    else the dense GELU MLP (term ``None``). Under a tensor-parallel
+    ``group`` (dense only) ``w1`` is this rank's column slice and ``w2``
+    reduces through :func:`_mm_row`."""
     if cfg.n_experts > 0:
         from .moe import moe_ffn
 
         return moe_ffn(h, p["router"], p["w_up"], p["w_down"],
                        top_k=cfg.expert_top_k,
                        capacity_factor=cfg.capacity_factor,
-                       dtype=cfg.dtype, aux=aux, ep=par.ep, data=par.data)
+                       dtype=cfg.dtype, aux=aux, ep=par.ep, tp=par.tp,
+                       data=par.data, blocks=par.blocks, piece=piece)
     return _mm_row(_gelu(_mm(h, p["w1"], cfg.dtype)), p["w2"], cfg.dtype,
                    group), None
 
@@ -720,12 +730,16 @@ def _reduced(y, cfg: GPTConfig, tp):
 
 
 def _block_pieces(x: torch.Tensor, p: Params, cfg: GPTConfig, par: _Par,
-                  policy: str) -> torch.Tensor:
-    """:func:`_block` (dense) for a rank whose block holds collectives
-    (tp all-reduces, ring or Ulysses exchanges): the remat policy wraps
-    the pieces between them, so a recompute never repeats a collective.
-    Flash attention is a piece of its own, recomputed under ``dots`` and
-    ``full`` as in the whole-block form."""
+                  policy: str
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """:func:`_block` for a rank whose block holds collectives (tp
+    all-reduces, ring or Ulysses exchanges, MoE's count all-gather and
+    ep/tp sums): the remat policy wraps the pieces between them, so a
+    recompute never repeats a collective. Flash attention is a piece of
+    its own, recomputed under ``dots`` and ``full`` as in the
+    whole-block form. The MoE FFN's pieces are the router, the expert
+    products and the combine; the routing and the balance term, whose
+    collectives sit between them, run once."""
     B, S, _ = x.shape
     q, k, v = _remat(_qkv, policy, x, p["ln1_scale"], p["wq"], p["wk"],
                      p["wv"], cfg, par.tp)
@@ -735,8 +749,14 @@ def _block_pieces(x: torch.Tensor, p: Params, cfg: GPTConfig, par: _Par,
         att = _attention(q, k, v, cfg, par)
     x = x + _reduced(_remat(_partial, policy, att.reshape(B, S, -1),
                             p["wo"], cfg, par.tp), cfg, par.tp)
+    if cfg.n_experts > 0:
+        h = _remat(_rmsnorm, policy, x, p["ln2_scale"])
+        y, aux = _ffn(h, p, cfg, par=par, piece=functools.partial(
+            _remat_piece, policy))
+        return x + y, aux
     return x + _reduced(_remat(_mlp_partial, policy, x, p["ln2_scale"],
-                               p["w1"], p["w2"], cfg, par.tp), cfg, par.tp)
+                               p["w1"], p["w2"], cfg, par.tp), cfg,
+                        par.tp), None
 
 
 # Matrix products: what ``jax.checkpoint_policies.checkpoint_dots`` keeps.
@@ -766,6 +786,10 @@ def _remat(fn: Callable, policy: str, *args):
                           create_selective_checkpoint_contexts, _save_dots))
 
 
+def _remat_piece(policy: str, fn: Callable, *args):
+    return _remat(fn, policy, *args)
+
+
 def _embed(params: Params, tokens: torch.Tensor, start: int,
            cfg: GPTConfig) -> torch.Tensor:
     S = tokens.shape[1]
@@ -790,10 +814,11 @@ def _trunk(params: Params, tokens, cfg: GPTConfig, par: _Par, mesh,
     auxs = []
     for i in range(cfg.n_layer):
         if par.pieces:
-            x = _block_pieces(x, layer_params(params, i), cfg, par, policy)
-            continue
-        x, aux = _remat(_block, policy, x, layer_params(params, i), cfg,
-                        par)
+            x, aux = _block_pieces(x, layer_params(params, i), cfg, par,
+                                   policy)
+        else:
+            x, aux = _remat(_block, policy, x, layer_params(params, i),
+                            cfg, par)
         if aux is not None:
             auxs.append(aux)
     return x, auxs
@@ -990,21 +1015,24 @@ def _default_optimizer(params: Iterable[torch.Tensor]
 def _tp_dim(name: str, ndim: int, tp: int) -> Optional[int]:
     """The dim along which weight ``name`` is split into the tp ranks'
     compute slices (``gpt_decode.shard_tensor``'s split: column-parallel
-    weights by output columns, row-parallel ones by input rows, dim 1
-    after the layer dim), or ``None`` for a weight every rank holds
-    whole."""
+    weights by output columns, the last dim; row-parallel ones by input
+    rows, the one before it, which is dim 1 of ``wo``/``w2 [L, in, d]``
+    and dim 2 of an MoE ``w_down [L, E, f, d]``), or ``None`` for a
+    weight every rank holds whole. ``w_up [L, E, d, f]`` is a column
+    weight: each tp rank holds ``d_ff/tp`` of every expert's units."""
     from .gpt_decode import _TP_COL, _TP_ROW  # that module imports this
 
     if tp == 1:
         return None
-    if name in _TP_COL:
+    if name in _TP_COL or name == "w_up":
         return ndim - 1
-    return 1 if name in _TP_ROW else None
+    return ndim - 2 if name in _TP_ROW or name == "w_down" else None
 
 
 def _tp_slices(full: Params, mesh) -> Params:
-    """Under tp this rank's column slice of ``wq/wk/wv/w1`` and row
-    slice of ``wo/w2`` (views), every other weight whole."""
+    """Under tp this rank's column slice of ``wq/wk/wv/w1/w_up`` and row
+    slice of ``wo/w2/w_down`` (views, :func:`_tp_dim`), every other
+    weight whole."""
     tp = mesh.shape.get("tp", 1) if mesh is not None else 1
     if tp == 1:
         return dict(full)
@@ -1019,11 +1047,12 @@ def _tp_slices(full: Params, mesh) -> Params:
 def compute_params(full: Params, mesh, cfg: Optional[GPTConfig] = None
                    ) -> Params:
     """This rank's compute layout of the full weights on ``mesh``: under
-    tp its column slice of ``wq/wk/wv/w1`` and row slice of ``wo/w2``
-    (views), every other weight whole. With ``cfg``: in a pipeline the
-    block weights are its stage's layers (and tp slices), cut by
-    :func:`_pp_tp_param_specs`, the rest whole; for an MoE model over
-    ``cfg.ep_axis`` ``w_up``/``w_down`` hold its ``E/ep`` experts."""
+    tp its column slice of ``wq/wk/wv/w1/w_up`` and row slice of
+    ``wo/w2/w_down`` (views), every other weight whole. With ``cfg``: in
+    a pipeline the block weights are its stage's layers (and tp slices),
+    cut by :func:`_pp_tp_param_specs`, the rest whole; for an MoE model
+    over ``cfg.ep_axis`` ``w_up``/``w_down`` hold its ``E/ep`` experts
+    (of those, its tp slice)."""
     if cfg is not None and _pipelined(cfg, mesh):
         from ..parallel.sharding import Placement
 
@@ -1076,8 +1105,7 @@ def make_train_step(cfg: GPTConfig, mesh=None, optimizer: Optional[
     (the expert dim over ``cfg.ep_axis``). Gradients of what every tp or
     ep rank computes in full are divided by that axis's size, the slices
     and pieces are reduced to their shards, and everything is averaged
-    over the data ranks. MoE with tp, sp or pp raises (see
-    :func:`_check`)."""
+    over the data ranks. MoE in a pipeline raises (see :func:`_check`)."""
     from ..parallel import mesh as pmesh
     from ..parallel import sharding as shr
 

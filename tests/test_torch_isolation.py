@@ -9,7 +9,9 @@ included) and of ``chip_smoke.py``, and by serving nano requests
 drafter), handing one request off from a prefill engine to a decode
 engine, taking a nano train step (flash attention, ``dots`` remat), and
 serving one request and taking one train step with a nano
-Mixture-of-Experts model, and serving one request on a tp=2 engine, in
+Mixture-of-Experts model, one ResNet-18 forward at inference (through
+the predictor's ``uint8_input`` path) and one in training, and serving
+one request on a tp=2 engine, in
 a fresh interpreter where ``jax`` and ``ml_dtypes`` are poisoned in
 ``sys.modules`` and an import hook refuses them and ``ray_tpu`` and
 ``ray_tpu.*`` (but not ``ray_tpu_torch``). A subprocess, because this
@@ -19,8 +21,9 @@ the modules it imported over the group, after serving, and none of
 them may be ``jax``, ``ml_dtypes`` or ``ray_tpu``. The same holds for a
 sharded training step: two rank processes of a ``RankPool``, spawned
 from a script whose controller holds the block, take a nano step on
-``{fsdp: 2}``, on ``{tp: 2}`` and through the pipeline on ``{pp: 2}``
-and report their modules.
+``{fsdp: 2}``, on ``{tp: 2}``, through the pipeline on ``{pp: 2}`` and
+with a Mixture-of-Experts model on ``{tp: 2}``, and report their
+modules.
 """
 import ast
 import os
@@ -48,7 +51,8 @@ def test_no_jax_or_reference_imports_in_source():
                  "parallel/sharding.py", "collective/collective.py",
                  "ops/ring_attention.py", "train/checkpoint.py",
                  "train/session.py", "parallel/pipeline.py",
-                 "parallel/multislice.py"):
+                 "parallel/multislice.py", "models/moe.py",
+                 "models/resnet.py"):
         assert os.path.join(PKG, must) in files, must
     files.append(os.path.join(ROOT, "chip_smoke.py"))
     bad = []
@@ -152,6 +156,20 @@ init, step, _, _ = gpt.make_train_step(dataclasses.replace(tcfg, n_experts=4),
 state, metrics = step(init(seed=0), {"tokens": np.arange(
     2 * 17, dtype=np.int64).reshape(2, 17) % cfg.vocab_size})
 assert float(metrics["moe_aux"]) > 0, metrics
+# ResNet: one forward at inference and one in training.
+from ray_tpu_torch.models import resnet
+
+rcfg = resnet.ResNetConfig(depth=18, num_classes=10, width=8,
+                           dtype=torch.float32)
+rparams = resnet.init_params(rcfg, 0, device="cpu")
+images = np.random.default_rng(0).integers(0, 256, (2, 32, 32, 3),
+                                           dtype=np.uint8)
+logits = resnet.make_predictor(rcfg, rparams, uint8_input=True)(images)
+assert logits.shape == (2, 10) and bool(torch.isfinite(logits).all())
+logits, new = resnet.forward(rparams, torch.rand(2, 32, 32, 3), rcfg,
+                             train=True)
+assert not torch.equal(new["stem"]["bn"]["mean"],
+                       rparams["stem"]["bn"]["mean"])
 # Tensor parallelism: a tp=2 engine; its follower reports its modules.
 from ray_tpu_torch._private import tp
 
@@ -226,7 +244,8 @@ if __name__ == "__main__":
     with RankPool(2, devices=("cpu",) * 2) as pool:
         for axes, backend, kw in (({"fsdp": 2}, "xla", {}),
                                   ({"tp": 2}, "flash", {}),
-                                  ({"pp": 2}, "flash", {"pp_axis": "pp"})):
+                                  ({"pp": 2}, "flash", {"pp_axis": "pp"}),
+                                  ({"tp": 2}, "flash", {"n_experts": 4})):
             for modules in pool.run(rank_step, axes, backend, **kw):
                 assert "torch" in modules, modules
                 bad = sorted(set(modules) & set(BLOCKED))
@@ -239,10 +258,10 @@ if __name__ == "__main__":
 
 
 def test_sharded_step_with_jax_and_reference_blocked(tmp_path):
-    """Two CPU ranks take a nano train step on {fsdp: 2}, on {tp: 2} and
-    on {pp: 2} (flash, its plain versions here) from a controller that
-    blocks JAX and the reference; the ranks report the modules they
-    imported."""
+    """Two CPU ranks take a nano train step on {fsdp: 2}, on {tp: 2}, on
+    {pp: 2} and MoE on {tp: 2} (flash, its plain versions here) from a
+    controller that blocks JAX and the reference; the ranks report the
+    modules they imported."""
     script = tmp_path / "sharded_child.py"
     script.write_text(_SHARDED)
     env = dict(os.environ)

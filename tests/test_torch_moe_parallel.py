@@ -13,7 +13,9 @@ and the gathered parameters within the bound of
 over the global batch and hands out slots over the global token order;
 a case checks that a router counting only its own rank's rows would
 give another loss here, and that the port's ``{dp:2}`` loss is one
-card's. MoE with tp or sp stays refused.
+card's. Experts the ep axis does not divide, MoE in a pipeline stage and
+Ulysses with heads sp does not divide stay refused (MoE x tp and MoE x
+sp: ``test_torch_moe_tp_sp.py``).
 
 JAX is imported inside the tests: the rank processes import this module
 to find their functions and need only torch.
@@ -41,10 +43,11 @@ def _ids(m):
 
 
 def _tcfg(cf, **kw):
+    kw = {"attn_backend": "xla", **kw}
     return dataclasses.replace(
         tgpt.CONFIGS["nano"], dtype=torch.float32, remat="none",
-        attn_backend="xla", n_experts=EXPERTS, expert_top_k=2,
-        moe_aux_coef=1.0, capacity_factor=cf, **kw)
+        n_experts=EXPERTS, expert_top_k=2, moe_aux_coef=1.0,
+        capacity_factor=cf, **kw)
 
 
 def _tokens():
@@ -184,16 +187,20 @@ def test_capacity_counts_the_global_batch(pool2, reference):
         assert abs(aux - whole["moe_aux"].item()) <= 1e-6, (aux, whole)
 
 
-@pytest.mark.parametrize("axes,match", [
-    ({"ep": 2, "tp": 2}, r"MoE on a mesh with \['tp'\]"),
-    ({"dp": 2, "sp": 2}, r"MoE on a mesh with \['sp'\]"),
-    ({"ep": 3}, "n_experts=4 not divisible by ep=3")], ids=str)
-def test_moe_unported_meshes_raise(axes, match):
-    """MoE x tp and MoE x sp run in the reference under GSPMD and are not
-    ported; experts the ep axis does not divide are refused."""
+@pytest.mark.parametrize("axes,kw,err,match", [
+    pytest.param({"ep": 3}, {}, ValueError,
+                 "n_experts=4 not divisible by ep=3",
+                 id="{'ep': 3}-n_experts=4 not divisible by ep=3"),
+    pytest.param({"pp": 2}, {"pp_axis": "pp"}, NotImplementedError,
+                 "MoE inside a pipeline stage", id="pp2-moe-in-a-stage"),
+    pytest.param({"tp": 2, "sp": 2}, {"attn_backend": "ulysses"},
+                 ValueError, "ulysses needs the 1 heads",
+                 id="tp2-sp2-ulysses-heads")])
+def test_moe_unported_meshes_raise(axes, kw, err, match):
+    """What the reference refuses stays refused: experts the ep axis does
+    not divide, MoE in a pipeline stage, and Ulysses with heads sp does
+    not divide. MoE x tp and MoE x sp train (``test_torch_moe_tp_sp.py``)."""
     n = int(np.prod(list(axes.values())))
     mesh = tmesh.Mesh(axes, range(n), 0, "cpu")
-    err = ValueError if "ep" in axes and len(axes) == 1 else \
-        NotImplementedError
     with pytest.raises(err, match=match):
-        tgpt.make_train_step(_tcfg(1.25, sp_axis="sp"), mesh)
+        tgpt.make_train_step(_tcfg(1.25, sp_axis="sp", **kw), mesh)

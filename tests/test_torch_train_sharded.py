@@ -9,8 +9,8 @@ within ``LOSS_TOL``, and the gathered parameters within the bound
 ``tests/test_torch_train.py`` holds the one-card step to (each within lr
 of the reference, the median within 1e-3 lr), against the reference and
 against the port on one rank. The flash backend (its plain versions on
-the CPU) trains on ``{fsdp:2,tp:2}`` as on one rank. MoE with tp, MoE in
-a pipeline stage, an ep axis under a dense model, an idle sp axis and
+the CPU) trains on ``{fsdp:2,tp:2}`` as on one rank. MoE with heads tp
+does not divide, MoE in a pipeline stage, an ep axis under a dense model, an idle sp axis and
 widths tp does not divide are refused before any collective (pipelines
 and MoE meshes: ``test_torch_pipeline.py``, ``test_torch_moe_parallel.py``).
 
@@ -153,8 +153,7 @@ def test_flash_backend_sharded(pool4, reference):
 
 
 @pytest.mark.parametrize("cfg_kw,axes,err,match", [
-    (dict(n_experts=4), {"tp": 2}, NotImplementedError,
-     "MoE on a mesh with"),
+    (dict(n_experts=4), {"tp": 4}, ValueError, "not divisible by tp=4"),
     (dict(pp_axis="pp", n_experts=4), {"pp": 2}, NotImplementedError,
      "MoE inside a pipeline stage"),
     ({}, {"ep": 2}, ValueError, "shard nothing"),
