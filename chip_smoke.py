@@ -128,7 +128,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
    {ep:2} with 8 experts (24/12/12 a step on each rank), the loss
    falling; a multislice step of two one-rank slices whose checksums
    agree; then K2/K3 at the microbatch shape (B=8, H=12) against their
-   plain versions, timed.
+   plain versions, timed;
+10. ResNet (``resnet_phase``): ResNet-18 card vs CPU at f32, ResNet-50
+    bf16 serving at batches 1-16 and one training step;
+11. the RL numeric core (``rl_phase``, ``ray_tpu_torch.rllib``): every
+    learner (PPO MLP and conv, DQN, SAC with and without CQL, BC,
+    MARWIL) on the card against the CPU at f32, SAC's threefry draws
+    bit-equal; PPO on a numpy CartPole (the reference's learning gate,
+    then bench_rl.py's configuration to the solved stop: iterations,
+    env steps/s, learner update ms); the Nature-CNN learner at 84x84x4
+    (update ms, peak memory, against the CPU); two ``RankPool``
+    learners on this card equal to two local learners averaged.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Needs one card, no network.
@@ -1661,6 +1671,466 @@ def resnet_phase(card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ---- RL: the rllib numeric core's learners on the card
+# Card vs CPU at f32 (TF32 off in every learner step), from the same
+# numpy weights and batches: every metric within RL_TOL of the CPU's,
+# relative to max(|value|, 1); every parameter, target and Adam moment
+# within RL_TOL of the CPU's, relative to max(its leaf's largest
+# magnitude, 1e-3). On the CPU the port's learners sit within ~2e-6 of
+# the reference's by these measures (tests/test_torch_rllib*.py).
+RL_TOL = 1e-5
+# Conv learners are held otherwise: their ReLUs are kinks. An input
+# within rounding of 0 (a Nature-CNN minibatch of 128 has 2.8M) can be
+# on in one computation and off in the other, and its term then enters
+# a conv weight's gradient in one only: ~1e-3 of the leaf's largest
+# gradient. Adam's moments carry that (held within RL_CONV_TOL), and its
+# step is ~±lr for any gradient above eps, so a gradient near 0 can step
+# the other way: at most RL_FLIPS of the parameters may part by more
+# than RL_TOL. The CPU's own f32 update held to an f64 run passes the
+# same hold, kink included (tests/test_torch_rllib.py::
+# test_chip_smoke_hold_covers_f32_rounding: moments 9.3e-4, 36 of 1.69M
+# parameters at seed 12).
+RL_CONV_TOL = 5e-3
+RL_FLIPS = 1e-4
+# (b) benchmarks/bench_rl.py's PPO CartPole configuration and its solved
+# stop (mean return >= 450 over >= 20 episodes), at most RL_MAX_ITERS
+# iterations. The learning gate is the reference's test
+# (tests/test_rllib.py:58), run at that test's own configuration
+# (:9-19): a best mean return of at least 120 within 25 iterations of
+# 1,024 env steps. bench_rl.py's iterations are half as long, and there
+# both packages reach 109.75 in 25 (seed 0, the CPU).
+RL_PPO = dict(lr=3e-4, train_batch_size=512, minibatch_size=128,
+              num_epochs=8, entropy_coeff=0.01)
+RL_ENVS, RL_FRAGMENT, RL_HIDDEN = 8, 64, (64, 64)
+RL_SOLVED, RL_MAX_ITERS = 450.0, 150
+RL_GATE = dict(lr=3e-4, train_batch_size=1024, minibatch_size=256,
+               num_epochs=6, entropy_coeff=0.001)
+RL_GATE_FRAGMENT, RL_GATE_ITERS, RL_GATE_RETURN = 32, 25, 120.0
+# (c) the Nature-CNN torso at Atari's shape (bench_rl.py's IMPALA
+# pipeline: 84x84x4 frames, 6 actions; torso 512) at minibatch 128.
+RL_ATARI = dict(obs_shape=(84, 84, 4), num_actions=6, torso=512, batch=128)
+
+
+def make_cartpole():
+    """CartPole-v1 in numpy, with gymnasium's dynamics, reset draw and
+    TimeLimit (truncation at 500 steps), for machines without gymnasium;
+    ``tests/test_torch_rllib.py`` holds it to ``gymnasium.make(
+    "CartPole-v1")`` step for step."""
+    import types
+
+    import numpy as np
+
+    class CartPole:
+        observation_space = types.SimpleNamespace(shape=(4,))
+        action_space = types.SimpleNamespace(n=2)
+        gravity, masscart, masspole, length = 9.8, 1.0, 0.1, 0.5
+        force_mag, tau, max_steps = 10.0, 0.02, 500
+        total_mass = masspole + masscart
+        polemass_length = masspole * length
+        theta_threshold = 12 * 2 * math.pi / 360
+        x_threshold = 2.4
+
+        def __init__(self):
+            self.rng = None
+            self.state = None
+            self.steps = 0
+
+        def reset(self, *, seed=None, options=None):
+            if seed is not None or self.rng is None:
+                self.rng = np.random.default_rng(seed)
+            self.state = self.rng.uniform(low=-0.05, high=0.05, size=(4,))
+            self.steps = 0
+            return np.array(self.state, dtype=np.float32), {}
+
+        def step(self, action):
+            x, x_dot, theta, theta_dot = self.state
+            force = self.force_mag if action == 1 else -self.force_mag
+            costheta, sintheta = np.cos(theta), np.sin(theta)
+            temp = (force + self.polemass_length * np.square(theta_dot)
+                    * sintheta) / self.total_mass
+            thetaacc = (self.gravity * sintheta - costheta * temp) / (
+                self.length * (4.0 / 3.0 - self.masspole
+                               * np.square(costheta) / self.total_mass))
+            xacc = temp - self.polemass_length * thetaacc * costheta \
+                / self.total_mass
+            x = x + self.tau * x_dot
+            x_dot = x_dot + self.tau * xacc
+            theta = theta + self.tau * theta_dot
+            theta_dot = theta_dot + self.tau * thetaacc
+            self.state = np.array((x, x_dot, theta, theta_dot),
+                                  dtype=np.float64)
+            terminated = bool(x < -self.x_threshold or x > self.x_threshold
+                              or theta < -self.theta_threshold
+                              or theta > self.theta_threshold)
+            self.steps += 1
+            return (np.array(self.state, dtype=np.float32), 1.0, terminated,
+                    self.steps >= self.max_steps, {})
+
+    return CartPole()
+
+
+def _rl_leaf_errs(a, b, path=""):
+    """``(path, error, beyond, size)`` of every leaf of two numpy trees
+    (dicts/lists): the largest difference relative to max(the leaf's
+    largest |value| in ``b``, 1e-3), and how many of its ``size``
+    elements part by more than RL_TOL of that; an integer leaf's error
+    is 0 if equal, else inf."""
+    import numpy as np
+
+    if isinstance(a, dict):
+        return [e for k in b for e in _rl_leaf_errs(a[k], b[k],
+                                                    f"{path}/{k}")]
+    if isinstance(a, (list, tuple)):
+        return [e for i, (x, y) in enumerate(zip(a, b))
+                for e in _rl_leaf_errs(x, y, f"{path}/{i}")]
+    a, b = np.asarray(a), np.asarray(b)
+    if a.shape != b.shape or a.dtype != b.dtype:
+        raise AssertionError(f"leaf {path}: {a.shape} {a.dtype} vs "
+                             f"{b.shape} {b.dtype}")
+    if b.dtype.kind in "iu":
+        equal = np.array_equal(a, b)
+        return [(path, 0.0 if equal else math.inf, 0 if equal else b.size,
+                 b.size)]
+    diff = np.abs(a.astype(np.float64) - b) / max(float(np.abs(b).max()),
+                                                  1e-3)
+    return [(path, float(diff.max()), int((diff > RL_TOL).sum()), b.size)]
+
+
+def _rl_hold(got, want, conv: bool):
+    """Hold a learner state from the card to the CPU's: ``(ok, text)``.
+    Dense learners: every leaf within RL_TOL. Conv learners: the Adam
+    moments within RL_CONV_TOL, and at most RL_FLIPS of the parameters
+    (and targets) beyond RL_TOL; integer leaves equal either way."""
+    errs = _rl_leaf_errs(got, want)
+    path, worst = max(((p, e) for p, e, _, _ in errs), key=lambda e: e[1])
+    if not conv:
+        return worst <= RL_TOL, f"{worst:.3g} ({path})"
+    moments = [e for p, e, _, _ in errs if "opt_state" in p.split("/")]
+    params = [(n, size) for p, _, n, size in errs
+              if "opt_state" not in p.split("/")]
+    beyond, total = (sum(x) for x in zip(*params))
+    ok = max(moments) <= RL_CONV_TOL and beyond <= RL_FLIPS * total and \
+        all(e < math.inf for _, e, _, _ in errs)
+    return ok, (f"moments {max(moments):.3g} (tolerance {RL_CONV_TOL}), "
+                f"{beyond} of {total} parameters beyond {RL_TOL} (at most "
+                f"{RL_FLIPS:g} of them), worst leaf {worst:.3g} ({path})")
+
+
+def _rl_tree_err(a, b) -> float:
+    return max(e for _, e, _, _ in _rl_leaf_errs(a, b))
+
+
+def _rl_metric_err(a: dict, b: dict) -> float:
+    import numpy as np
+
+    if set(a) != set(b):
+        raise AssertionError(f"metrics {sorted(a)} vs {sorted(b)}")
+    return max(float(np.max(np.abs(np.asarray(a[k], np.float64) - b[k])
+                            / np.maximum(np.abs(b[k]), 1.0))) for k in b)
+
+
+def rl_phase(card: str) -> None:
+    """The rllib numeric core (``ray_tpu_torch.rllib``): (a) every learner
+    on the card against the CPU from the same numpy weights and batches
+    at f32 (MLP and 42x42x4 conv PPO, DQN, SAC with and without CQL, BC,
+    MARWIL), SAC's threefry draws bit-equal; (b) PPO on a numpy CartPole,
+    learner on the card: the reference's learning gate at its test's
+    configuration, then bench_rl.py's configuration to the solved stop
+    (iterations, wall time, env steps/s, learner update ms); (c) the
+    Nature-CNN learner at 84x84x4: update ms, peak memory, one update
+    against the CPU; (d) a ``LearnerGroup`` of two ``RankPool`` learners
+    on this card equal to two local learners on the batch halves,
+    averaged. No TPU kernel is on this path (dense products, cuDNN
+    convolutions, Adam)."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch._private import tree
+    from ray_tpu_torch.rllib import (BCConfig, DQNLearner, LearnerGroup,
+                                     MARWILConfig, PPOConfig, PPOLearner,
+                                     RLModuleSpec, SACLearner,
+                                     SingleAgentEnvRunner, compute_gae,
+                                     params_to_numpy)
+    from ray_tpu_torch.rllib.dqn import EpsilonGreedyModule
+    from ray_tpu_torch.rllib.learner import mean_state
+    from ray_tpu_torch.rllib.sac import SquashedGaussianModule
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(12)
+    mlp = RLModuleSpec(obs_dim=4, num_actions=2, hidden=RL_HIDDEN)
+    runner = SingleAgentEnvRunner(make_cartpole, mlp, RL_ENVS, RL_FRAGMENT,
+                                  seed=0)
+    frag = runner.sample()
+    adv, vtarg = compute_gae(frag["rewards"], frag["values"],
+                             frag["next_values"], frag["dones"],
+                             frag["truncateds"], frag["_shape"])
+    ppo_batch = {"obs": frag["obs"], "actions": frag["actions"],
+                 "logp_old": frag["logp"], "advantages": adv,
+                 "value_targets": vtarg}
+    n = len(frag)
+
+    def conv_batch(shape, actions, size):
+        return {"obs": rng.random((size,) + shape, np.float32),
+                "actions": rng.integers(0, actions, size),
+                "logp_old": (np.log(1.0 / actions) + 0.1
+                             * rng.standard_normal(size)).astype(np.float32),
+                "advantages": rng.standard_normal(size).astype(np.float32),
+                "value_targets": rng.standard_normal(size).astype(
+                    np.float32)}
+
+    def transitions(obs_dim, act, size, continuous):
+        b = {"obs": rng.standard_normal((size, obs_dim)).astype(np.float32),
+             "rewards": rng.standard_normal(size).astype(np.float32),
+             "next_obs": rng.standard_normal((size, obs_dim)).astype(
+                 np.float32),
+             "dones": (rng.random(size) < 0.05).astype(np.float32),
+             "weights": rng.random(size).astype(np.float32)}
+        b["actions"] = (rng.uniform(-2, 2, (size, act)).astype(np.float32)
+                        if continuous else rng.integers(0, act, size))
+        return b
+
+    conv = RLModuleSpec(obs_dim=42 * 42 * 4, num_actions=6, hidden=(256,),
+                        obs_shape=(42, 42, 4), conv=True)
+    conv42 = conv_batch((42, 42, 4), 6, 256)
+    dqn = RLModuleSpec(obs_dim=4, num_actions=2, hidden=RL_HIDDEN,
+                       module_cls=EpsilonGreedyModule)
+    dqn_batches = [transitions(4, 2, 128, False) for _ in range(3)]
+    box = dict(obs_dim=3, num_actions=1, hidden=RL_HIDDEN, continuous=True,
+               action_low=np.array([-2.0], np.float32),
+               action_high=np.array([2.0], np.float32),
+               module_cls=SquashedGaussianModule)
+    sac = RLModuleSpec(**box)
+    sac_batches = [transitions(3, 1, 256, True) for _ in range(3)]
+    offline = {"obs": frag["obs"], "actions": frag["actions"],
+               "rewards": frag["rewards"],
+               "dones": frag["dones"].astype(np.float32)}
+
+    def ppo_run(spec, batch):
+        def run(dev):
+            learner = PPOLearner(spec, seed=0, device=dev)
+            ms = [learner.update(batch, minibatch_size=128, num_epochs=1,
+                                 shuffle_seed=s) for s in (0, 1)]
+            return ms, learner.get_state()
+        return run
+
+    def dqn_run(dev):
+        learner = DQNLearner(dqn, seed=0, device=dev)
+        ms = []
+        for i, b in enumerate(dqn_batches):
+            m = learner.update(b)
+            m["td_errors"] = m["td_errors"].astype(np.float64)
+            ms.append(m)
+            if i == 1:
+                learner.sync_target()
+        return ms, learner.get_state()
+
+    def sac_run(cql_weight):
+        def run(dev):
+            learner = SACLearner(sac, seed=0, cql_weight=cql_weight,
+                                 device=dev)
+            ms = [learner.update(b) for b in sac_batches]
+            state = learner.get_state()
+            state["key"] = learner._rng_key.cpu().numpy()
+            return ms, state
+        return run
+
+    def offline_run(cls, **kw):
+        def run(dev):
+            algo = (cls().offline(offline, obs_dim=4, num_actions=2)
+                    .training(minibatch_size=128, num_epochs=1, **kw)
+                    .learners(device=dev).debugging(seed=0))
+            algo = algo.algo_class(algo)
+            ms = [algo.train() for _ in range(2)]
+            return ms, {"params": algo.params, "opt_state": algo.opt_state}
+        return run
+
+    cases = {"ppo_mlp": ppo_run(mlp, ppo_batch),
+             "ppo_conv_42x42x4": ppo_run(conv, conv42),
+             "dqn": dqn_run, "sac": sac_run(0.0), "sac_cql": sac_run(5.0),
+             "bc": offline_run(BCConfig),
+             "marwil": offline_run(MARWILConfig, beta=1.0)}
+    held = {}
+    for name, run in cases.items():
+        got = {dev: run(dev) for dev in ("cpu", "cuda")}
+        (m_cpu, s_cpu), (m_gpu, s_gpu) = got["cpu"], got["cuda"]
+        s_cpu, s_gpu = params_to_numpy(s_cpu), params_to_numpy(s_gpu)
+        if name.startswith("sac") and not np.array_equal(s_cpu.pop("key"),
+                                                         s_gpu.pop("key")):
+            raise AssertionError(f"rl (a) {name}: the key chain parted")
+        metric = max(_rl_metric_err(g, c) for g, c in zip(m_gpu, m_cpu))
+        ok, text = _rl_hold(s_gpu, s_cpu, conv="conv" in name)
+        held[name] = (ok and metric <= RL_TOL, f"{name}: metrics "
+                      f"{metric:.3g}, state {text}")
+    # SAC's draws: one step's noise from one key, card vs CPU, bit for
+    # bit (the CQL learner draws all four)
+    learner = {dev: SACLearner(sac, seed=0, cql_weight=5.0, device=dev)
+               for dev in ("cpu", "cuda")}
+    key = torch.tensor([0, 12], dtype=torch.int64)
+    d_cpu = learner["cpu"].draws(key, 256)
+    d_gpu = learner["cuda"].draws(key.cuda(), 256)
+    draws_equal = all(torch.equal(d_gpu[k].cpu().view(torch.int32),
+                                  d_cpu[k].view(torch.int32)) for k in d_cpu)
+    log(f"rl (a) card vs CPU at f32 (TF32 off) [{card}]: largest metric "
+        f"error (relative to max(|value|, 1); tolerance {RL_TOL}) and leaf "
+        f"error of parameters, targets and Adam moments (relative to "
+        f"max(|leaf|, 1e-3); tolerance {RL_TOL}, conv learners as "
+        f"RL_CONV_TOL/RL_FLIPS say) per learner: "
+        + "; ".join(text for _, text in held.values())
+        + f"; SAC draws (next, pi, cql_rand, cql_pi;"
+        f" {', '.join(f'{k} {tuple(v.shape)}' for k, v in d_cpu.items())})"
+        f" bit-equal card vs CPU: {draws_equal}; key chains equal after "
+        f"3 updates")
+    if not draws_equal or not all(ok for ok, _ in held.values()):
+        raise AssertionError("rl (a): a learner on the card disagrees "
+                             "with the CPU")
+
+    # (b) PPO, learner on the card: the reference's learning gate at its
+    # test's configuration, then bench_rl.py's run to the solved stop
+    def ppo(training, fragment):
+        return (PPOConfig().environment(env_creator=make_cartpole)
+                .env_runners(num_env_runners=0,
+                             num_envs_per_env_runner=RL_ENVS,
+                             rollout_fragment_length=fragment)
+                .rl_module(hidden=RL_HIDDEN).training(**training)
+                .learners(device="cuda").debugging(seed=0)).build()
+
+    algo = ppo(RL_GATE, RL_GATE_FRAGMENT)
+    t = time.perf_counter()
+    try:
+        gate = max(algo.train()["episode_return_mean"]
+                   for _ in range(RL_GATE_ITERS))
+    finally:
+        algo.stop()
+    t_gate = time.perf_counter() - t
+    algo = ppo(RL_PPO, RL_FRAGMENT)
+    learner = algo.learner_group.local
+    update = learner.update
+    update_ms = []
+
+    def timed_update(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = update(*a, **kw)           # float() of the metrics syncs
+        update_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    learner.update = timed_update
+    best, solved, m = 0.0, None, {}
+    t = time.perf_counter()
+    try:
+        for i in range(RL_MAX_ITERS):
+            m = algo.train()
+            best = max(best, m["episode_return_mean"])
+            if m["num_episodes"] >= 20 and \
+                    m["episode_return_mean"] >= RL_SOLVED:
+                solved = i + 1
+                break
+        wall = time.perf_counter() - t
+        steps = algo._timesteps
+    finally:
+        algo.stop()
+    steps_per_update = (RL_PPO["train_batch_size"]
+                        // RL_PPO["minibatch_size"] * RL_PPO["num_epochs"])
+    outcome = (f"solved (mean >= {RL_SOLVED} over >= 20 episodes) after "
+               f"{solved}" if solved else f"not solved in {i + 1}")
+    log(f"rl (b) PPO CartPole-v1 (numpy, in the script), learner on the "
+        f"card [{card}]: the reference's gate at its test's configuration "
+        f"({RL_ENVS} envs x fragment {RL_GATE_FRAGMENT}, {RL_GATE}): best "
+        f"mean return {gate:.2f} within {RL_GATE_ITERS} iterations (gate "
+        f">= {RL_GATE_RETURN}; {t_gate:.3f} s); bench_rl.py's "
+        f"configuration (hidden {RL_HIDDEN}, {RL_ENVS} envs x fragment "
+        f"{RL_FRAGMENT}, {RL_PPO}, seed 0): {outcome} iterations, {steps} "
+        f"env steps in {wall:.3f} s = {steps / wall:.1f} env steps/s; last "
+        f"mean return {m['episode_return_mean']:.2f}, best {best:.2f}; "
+        f"learner update ({steps_per_update} minibatch steps) p50 "
+        f"{p50(update_ms):.3f} ms, first {update_ms[0]:.3f} ms, "
+        f"{sum(update_ms) / 1e3 / wall:.3f} of the wall time (the rest: "
+        f"sampling, GAE and weight sync on the host)")
+    if not gate >= RL_GATE_RETURN:
+        raise AssertionError(f"rl (b): PPO's best mean return within "
+                             f"{RL_GATE_ITERS} iterations is {gate}")
+
+    # (c) the Nature-CNN learner at full width
+    shape = RL_ATARI["obs_shape"]
+    atari = RLModuleSpec(obs_dim=int(np.prod(shape)),
+                         num_actions=RL_ATARI["num_actions"],
+                         hidden=(RL_ATARI["torso"],), obs_shape=shape,
+                         conv=True)
+    batch = conv_batch(shape, RL_ATARI["num_actions"], RL_ATARI["batch"])
+    states = {}
+    for dev in ("cpu", "cuda"):
+        learner = PPOLearner(atari, seed=0, device=dev)
+        states[dev] = (learner.update(batch), learner.get_state())
+    metric = _rl_metric_err(states["cuda"][0], states["cpu"][0])
+    ok, text = _rl_hold(states["cuda"][1], states["cpu"][1], conv=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for i in range(23):
+        t = time.perf_counter()
+        learner.update(batch)
+        if i >= 3:
+            ms.append((time.perf_counter() - t) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(v.size for v in tree.leaves(states["cpu"][1]["params"]))
+    log(f"rl (c) Nature-CNN PPO learner ({shape[0]}x{shape[1]}x{shape[2]}, "
+        f"torso {RL_ATARI['torso']}, {RL_ATARI['num_actions']} actions, "
+        f"{n_params} params, minibatch {RL_ATARI['batch']}) [{card}]: one "
+        f"update (batch in from the host, forward, backward, clipped Adam, "
+        f"metrics back) p50 {p50(ms):.3f} ms over 20 after 3, min "
+        f"{min(ms):.3f}; peak memory {peak / 2**20:.1f} MiB; one update card"
+        f" vs CPU at f32: metrics {metric:.3g} (tolerance {RL_TOL}), state "
+        f"{text}")
+    if not ok or metric > RL_TOL:
+        raise AssertionError("rl (c): the Nature-CNN learner on the card "
+                             "disagrees with the CPU")
+
+    # (d) two RankPool learners on this card against two local learners
+    # on the batch halves, averaged, over two updates (the first warms
+    # each rank's CUDA libraries)
+    kw = dict(minibatch_size=64, num_epochs=2)
+    half = n // 2
+    t = time.perf_counter()
+    group = LearnerGroup(functools.partial(PPOLearner, mlp, seed=0),
+                         num_learners=2, devices=("cuda:0", "cuda:0"))
+    try:
+        t_start = time.perf_counter() - t
+        t_update, got_m = [], []
+        for seed in (3, 4):
+            t = time.perf_counter()
+            got_m.append(group.update(ppo_batch, shuffle_seed=seed, **kw))
+            t_update.append((time.perf_counter() - t) * 1e3)
+        got = group.get_state()
+    finally:
+        group.stop()
+    pair = [PPOLearner(mlp, seed=0, device="cuda") for _ in range(2)]
+    want_m = []
+    for seed in (3, 4):
+        ms = [p.update({k: v[lo:lo + half] for k, v in ppo_batch.items()},
+                       shuffle_seed=seed, **kw)
+              for p, lo in zip(pair, (0, half))]
+        want_m.append({k: float(np.mean([m[k] for m in ms]))
+                       for k in ms[0]})
+        averaged = mean_state([p.get_state() for p in pair])
+        for p in pair:
+            p.set_state(averaged)
+    err = _rl_tree_err(got, averaged)
+    equal = err == 0.0 and got_m == want_m
+    log(f"rl (d) LearnerGroup(num_learners=2) on two RankPool ranks on "
+        f"this card (gloo) [{card}]: state and metrics after two updates "
+        f"({n} rows split in halves, {kw}, shuffle seeds 3 and 4) equal to "
+        f"two local learners', averaged after each: {equal} (state leaf "
+        f"error {err:.3g}); start {t_start:.3f} s,"
+        f" updates {[round(x, 3) for x in t_update]} ms (two processes on "
+        f"one card, states through the host) "
+        f"[{time.perf_counter() - t_phase:.1f} s in the phase]")
+    if not equal:
+        raise AssertionError("rl (d): the learner group differs from the "
+                             "averaged pair")
+
+
 def serve(params, cfg, reqs, *, device, attn_kernel=None, seeds=None,
           descs=None, slots=16, chunk=8, max_len=1024, page_size=16,
           **engine_kw):
@@ -3178,6 +3648,10 @@ def main() -> int:
 
     # ---- 8. ResNet: ResNet-18 card vs CPU, ResNet-50 serving and a step
     resnet_phase(card)
+
+    # ---- 9. RL: every learner card vs CPU, PPO CartPole, Nature-CNN,
+    # two rank learners
+    rl_phase(card)
 
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {

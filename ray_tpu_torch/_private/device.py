@@ -9,7 +9,8 @@ carries on quietly on the CPU; tests ask for it with ``device="cpu"``.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+import contextlib
+from typing import Iterator, Optional, Union
 
 import torch
 
@@ -45,3 +46,20 @@ def set_matmul_precision(device: Optional[torch.device]) -> None:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
             = False
+
+
+@contextlib.contextmanager
+def full_f32() -> Iterator[None]:
+    """Full f32 products and convolutions inside the block: TF32 off for
+    cuBLAS and for cuDNN (whose default is on), the flags restored on the
+    way out, so a caller's process-wide choice is left as it was. The
+    CPU ignores both flags."""
+    matmul, cudnn = (torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+        torch.backends.cudnn.allow_tf32 = cudnn

@@ -10,11 +10,14 @@ drafter), handing one request off from a prefill engine to a decode
 engine, taking a nano train step (flash attention, ``dots`` remat), and
 serving one request and taking one train step with a nano
 Mixture-of-Experts model, one ResNet-18 forward at inference (through
-the predictor's ``uint8_input`` path) and one in training, and serving
-one request on a tp=2 engine, in
+the predictor's ``uint8_input`` path) and one in training, serving
+one request on a tp=2 engine, and one local PPO iteration on a numpy
+environment and one SAC update with CQL's regularizer, in
 a fresh interpreter where ``jax`` and ``ml_dtypes`` are poisoned in
-``sys.modules`` and an import hook refuses them and ``ray_tpu`` and
-``ray_tpu.*`` (but not ``ray_tpu_torch``). A subprocess, because this
+``sys.modules`` and an import hook refuses them, ``optax``,
+``gymnasium``, and ``ray_tpu`` and ``ray_tpu.*`` (but not
+``ray_tpu_torch``). The AST scan also refuses ``optax`` anywhere and a
+module-level ``gymnasium`` import (the card's machine has neither). A subprocess, because this
 suite's conftest imports JAX into the test process. The tp=2 engine's
 follower process is spawned afresh, without that block, so it reports
 the modules it imported over the group, after serving, and none of
@@ -39,7 +42,7 @@ def _forbidden(name: str) -> bool:
     return top in FORBIDDEN
 
 
-FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "ray_tpu")
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "ray_tpu", "optax")
 
 
 def test_no_jax_or_reference_imports_in_source():
@@ -52,7 +55,13 @@ def test_no_jax_or_reference_imports_in_source():
                  "ops/ring_attention.py", "train/checkpoint.py",
                  "train/session.py", "parallel/pipeline.py",
                  "parallel/multislice.py", "models/moe.py",
-                 "models/resnet.py"):
+                 "models/resnet.py", "rllib/rl_module.py",
+                 "rllib/conv_module.py", "rllib/_optim.py",
+                 "rllib/learner.py", "rllib/connectors.py",
+                 "rllib/env_runner.py", "rllib/algorithm.py",
+                 "rllib/ppo.py", "rllib/replay_buffer.py", "rllib/dqn.py",
+                 "rllib/sac.py", "rllib/offline_data.py", "rllib/cql.py",
+                 "rllib/bc.py", "rllib/marwil.py"):
         assert os.path.join(PKG, must) in files, must
     files.append(os.path.join(ROOT, "chip_smoke.py"))
     bad = []
@@ -70,11 +79,35 @@ def test_no_jax_or_reference_imports_in_source():
     assert not bad, bad
 
 
+def test_gymnasium_only_imported_inside_functions():
+    """The port names environments through gymnasium only when asked to
+    (``AlgorithmConfig.make_env_creator``), so no module imports it at
+    import time: the card's machine has no gymnasium."""
+    bad = []
+    for d, _, fs in os.walk(PKG):
+        for f in fs:
+            if not f.endswith(".py"):
+                continue
+            path = os.path.join(d, f)
+            with open(path) as fh:
+                tree = ast.parse(fh.read(), path)
+            for node in tree.body:
+                if isinstance(node, ast.Import):
+                    names = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                    names = [node.module or ""]
+                else:
+                    continue
+                bad += [(path, n) for n in names
+                        if n.split(".")[0] == "gymnasium"]
+    assert not bad, bad
+
+
 _CHILD = r"""
 import importlib.abc
 import sys
 
-BLOCKED = ("jax", "jaxlib", "ml_dtypes", "ray_tpu")
+BLOCKED = ("jax", "jaxlib", "ml_dtypes", "ray_tpu", "optax", "gymnasium")
 sys.modules["jax"] = None          # `import jax` raises ImportError
 sys.modules["ml_dtypes"] = None
 
@@ -184,6 +217,50 @@ report, = tp.decode_group(2).probe()
 assert "torch" in report["modules"], report
 follower = sorted(set(report["modules"]) & set(BLOCKED))
 assert not follower, follower
+# RL: one local PPO iteration on a numpy env, one SAC (with CQL) update.
+import types
+
+from ray_tpu_torch import rllib
+
+
+class Walk:
+    observation_space = types.SimpleNamespace(shape=(3,))
+    action_space = types.SimpleNamespace(n=2)
+
+    def reset(self, *, seed=None, options=None):
+        self.rng = np.random.default_rng(seed) if seed is not None \
+            else self.rng
+        self.t, self.x = 0, self.rng.standard_normal(3).astype(np.float32)
+        return self.x, {}
+
+    def step(self, action):
+        self.t += 1
+        self.x = (self.x + (0.1 if action else -0.1)).astype(np.float32)
+        return self.x, float(action), bool(abs(self.x[0]) > 2), \
+            self.t >= 20, {}
+
+
+algo = (rllib.PPOConfig().environment(env_creator=Walk)
+        .env_runners(num_envs_per_env_runner=2, rollout_fragment_length=16)
+        .rl_module(hidden=(8, 8))
+        .training(train_batch_size=32, minibatch_size=16, num_epochs=2)
+        .learners(device="cpu").debugging(seed=0)).build()
+m = algo.train()
+algo.stop()
+assert np.isfinite(m["total_loss"]) and m["num_env_steps_trained"] == 32, m
+spec = rllib.RLModuleSpec(obs_dim=3, num_actions=1, hidden=(8, 8),
+                          continuous=True, action_low=np.array([-1.0]),
+                          action_high=np.array([1.0]),
+                          module_cls=rllib.SquashedGaussianModule)
+sac = rllib.SACLearner(spec, cql_weight=1.0, cql_num_actions=2,
+                       device="cpu")
+rng = np.random.default_rng(0)
+m = sac.update({"obs": rng.standard_normal((8, 3)),
+                "actions": rng.uniform(-1, 1, (8, 1)),
+                "rewards": rng.standard_normal(8),
+                "next_obs": rng.standard_normal((8, 3)),
+                "dones": np.zeros(8)})
+assert m["cql_loss"] > 0 and np.isfinite(m["critic_loss"]), m
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in BLOCKED
                 and sys.modules[m] is not None)
