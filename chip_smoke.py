@@ -1709,6 +1709,43 @@ RL_GATE_FRAGMENT, RL_GATE_ITERS, RL_GATE_RETURN = 32, 25, 120.0
 # (c) the Nature-CNN torso at Atari's shape (bench_rl.py's IMPALA
 # pipeline: 84x84x4 frames, 6 actions; torso 512) at minibatch 128.
 RL_ATARI = dict(obs_shape=(84, 84, 4), num_actions=6, torso=512, batch=128)
+# (e) multi-agent PPO: the reference's learning gate at its test's
+# configuration (tests/test_rllib_multi_agent.py:283-313): the best joint
+# return of CooperativeCorridor reaches RL_MA_RETURN within RL_MA_ITERS
+# iterations (random play scores about -1.3, the best about 3.3).
+RL_MA = dict(train_batch_size=2048, minibatch_size=256, num_epochs=6,
+             lr=3e-4, entropy_coeff=0.01)
+RL_MA_ENVS, RL_MA_FRAGMENT, RL_MA_HIDDEN = 4, 128, (32, 32)
+RL_MA_ITERS, RL_MA_RETURN = 40, 2.0
+# (f) DreamerV3 at the reference's XS size (the default DreamerV3Config:
+# deter 256, units 256, 8x8 latents, horizon 15, seq_len 16, 8 sequences)
+# on the numpy CartPole: RL_DV3_ITERS iterations of the algorithm (the
+# first four fill the replay, then 8 updates each). One update is held
+# card vs CPU from the same state, batch and key: the keys bit-equal,
+# the Gumbel noise within GUMBEL_ULPS, the samples compared index for
+# index (a latent or action whose two best perturbed logits lie within
+# the noise's rounding flips; flips are counted, not hidden); then the
+# CPU update is rerun on the card's noise, so every sample is the same
+# draw, and its metrics, Adam moments and slow critic must lie within
+# RL_TOL of the card's, and at most RL_FLIPS of its parameters outside
+# the actor beyond it (Adam steps a near-zero gradient by ~±lr either
+# way). The actor's parameters are counted, not held: while the reward
+# and critic heads still predict ~0 (they start at zero), the returns
+# and advantages that drive the actor are the rounding noise of their
+# 255-bin sums, which the card and the CPU sum in other orders, and
+# Adam turns each noise-driven gradient into a ±lr step
+# (tests/test_torch_rllib_dreamer.py shows the same against the
+# reference).
+RL_DV3_ITERS = 7
+# (g) IMPALA at benchmarks/bench_rl.py's Pong-shaped configuration
+# (:60-121): 2 Nature-CNN runners x 2 envs on a synthetic 84x84x4 env of
+# 6 actions, fragments of 32, one aggregator, train batch 256, lr 3e-4,
+# 8 iterations; then the reference's APPO smoke (tests/
+# test_rllib_depth.py:112-128) on the numpy CartPole.
+RL_IMPALA_ITERS = 8
+RL_APPO_ITERS = 3
+
+
 
 
 def make_cartpole():
@@ -1767,6 +1804,93 @@ def make_cartpole():
                     self.steps >= self.max_steps, {})
 
     return CartPole()
+
+
+def make_corridor():
+    """The reference's two-policy CooperativeCorridor
+    (tests/test_rllib_multi_agent.py:108-156): agent "left" must reach
+    cell 4 and "right" cell 0 of a 5-cell corridor; dense progress
+    shaping, a joint completion bonus, 40-step truncation."""
+    import types
+
+    import numpy as np
+
+    class CooperativeCorridor:
+        L = 5
+        possible_agents = ["left", "right"]
+        observation_spaces = {a: types.SimpleNamespace(shape=(2,))
+                              for a in possible_agents}
+        action_spaces = {a: types.SimpleNamespace(n=3)
+                         for a in possible_agents}
+
+        def __init__(self, max_steps=40):
+            self.max_steps = max_steps
+            self.pos = {}
+            self.t = 0
+
+        def _obs(self):
+            d = self.L - 1
+            return {"left": np.array([self.pos["left"] / d,
+                                      self.pos["right"] / d], np.float32),
+                    "right": np.array([self.pos["right"] / d,
+                                       self.pos["left"] / d], np.float32)}
+
+        def reset(self, *, seed=None, options=None):
+            self.pos = {"left": 0, "right": self.L - 1}
+            self.t = 0
+            return self._obs(), {}
+
+        def step(self, action_dict):
+            self.t += 1
+            goals = {"left": self.L - 1, "right": 0}
+            rew = {}
+            for a, act in action_dict.items():
+                prev = abs(self.pos[a] - goals[a])
+                self.pos[a] = int(np.clip(self.pos[a] + (int(act) - 1),
+                                          0, self.L - 1))
+                rew[a] = 0.2 * (prev - abs(self.pos[a] - goals[a])) - 0.02
+            done = all(self.pos[a] == goals[a] for a in self.possible_agents)
+            if done:
+                for a in rew:
+                    rew[a] += 1.0
+            trunc = self.t >= self.max_steps and not done
+            return (self._obs(), rew, {"__all__": done},
+                    {"__all__": trunc}, {})
+
+        def close(self):
+            pass
+
+    return CooperativeCorridor()
+
+
+def make_synth_atari():
+    """bench_rl.py's SynthAtari without gymnasium: 84x84x4 frames in
+    [0, 1), 6 actions, reward 1 for action 3, 200-step episodes."""
+    import types
+
+    import numpy as np
+
+    class SynthAtari:
+        observation_space = types.SimpleNamespace(shape=(84, 84, 4))
+        action_space = types.SimpleNamespace(n=6)
+
+        def __init__(self):
+            self._t = 0
+            self._rng = np.random.default_rng(0)
+
+        def _obs(self):
+            return self._rng.random((84, 84, 4), np.float32)
+
+        def reset(self, *, seed=None, options=None):
+            self._t = 0
+            return self._obs(), {}
+
+        def step(self, action):
+            self._t += 1
+            return self._obs(), float(action == 3), self._t >= 200, \
+                False, {}
+
+    return SynthAtari()
 
 
 def _rl_leaf_errs(a, b, path=""):
@@ -1840,8 +1964,13 @@ def rl_phase(card: str) -> None:
     Nature-CNN learner at 84x84x4: update ms, peak memory, one update
     against the CPU; (d) a ``LearnerGroup`` of two ``RankPool`` learners
     on this card equal to two local learners on the batch halves,
-    averaged. No TPU kernel is on this path (dense products, cuDNN
-    convolutions, Adam)."""
+    averaged; (e) multi-agent PPO: each module's learner card vs CPU,
+    then the reference's CooperativeCorridor gate; (f) DreamerV3 at XS:
+    the algorithm's iterations and one update card vs CPU, its samples
+    compared index for index; (g) IMPALA at bench_rl.py's Pong-shaped
+    configuration on runner and aggregator threads (env steps/s, update
+    ms, one V-trace update card vs CPU), then the APPO smoke. No TPU
+    kernel is on this path (dense products, cuDNN convolutions, Adam)."""
     import functools
 
     import numpy as np
@@ -2129,6 +2258,322 @@ def rl_phase(card: str) -> None:
     if not equal:
         raise AssertionError("rl (d): the learner group differs from the "
                              "averaged pair")
+
+    rl_multi_agent_part(card)
+    rl_dreamer_part(card)
+    rl_impala_part(card)
+
+
+def _timed_updates(learner, sink, first=None):
+    """Wrap ``learner.update`` to append each call's ms (host clock,
+    synchronised on both sides) to ``sink``; ``first`` (a list) keeps
+    the first call's arguments."""
+    import torch
+
+    update = learner.update
+
+    def timed(*a, **kw):
+        if first is not None and not first:
+            first.append((a, kw))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = update(*a, **kw)
+        torch.cuda.synchronize()
+        sink.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    learner.update = timed
+
+
+def rl_multi_agent_part(card: str) -> None:
+    """(e) Multi-agent PPO (``ray_tpu_torch.rllib.multi_agent``): each
+    module's learner card vs CPU on the same numpy weights and per-stream
+    GAE batch, then the reference's corridor gate with both learners on
+    the card."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib import (MultiAgentEnvRunner, PPOConfig,
+                                     PPOLearner, spec_from_spaces)
+    from ray_tpu_torch.rllib.multi_agent import stream_gae_batch
+
+    t_part = time.perf_counter()
+    env = make_corridor()
+    specs = {a: spec_from_spaces(env.observation_spaces[a],
+                                 env.action_spaces[a], RL_MA_HIDDEN)
+             for a in env.possible_agents}
+    runner = MultiAgentEnvRunner(make_corridor, specs, lambda aid, i: aid,
+                                 RL_MA_ENVS, RL_MA_FRAGMENT, seed=0)
+    frags = runner.sample()
+    held = {}
+    for mid, spec in sorted(specs.items()):
+        batch = stream_gae_batch([frags[mid]], 0.99, 0.95)
+        got = {}
+        for dev in ("cpu", "cuda"):
+            learner = PPOLearner(spec, lr=RL_MA["lr"],
+                                 entropy_coeff=RL_MA["entropy_coeff"],
+                                 seed=0, device=dev)
+            ms = [learner.update(batch, minibatch_size=RL_MA[
+                "minibatch_size"], num_epochs=2, shuffle_seed=s)
+                for s in (0, 1)]
+            got[dev] = (ms, learner.get_state())
+        metric = max(_rl_metric_err(g, c)
+                     for g, c in zip(got["cuda"][0], got["cpu"][0]))
+        ok, text = _rl_hold(got["cuda"][1], got["cpu"][1], conv=False)
+        held[mid] = (ok and metric <= RL_TOL,
+                     f"{mid} ({len(batch['obs'])} rows): metrics "
+                     f"{metric:.3g}, state {text}")
+    log(f"rl (e) multi-agent PPO, each module's learner card vs CPU at f32 "
+        f"after two updates of 2 epochs (minibatch "
+        f"{RL_MA['minibatch_size']}) on its per-stream GAE batch from one "
+        f"CooperativeCorridor fragment ({RL_MA_ENVS} envs x "
+        f"{RL_MA_FRAGMENT}) [{card}]: "
+        + "; ".join(text for _, text in held.values())
+        + f" (tolerance {RL_TOL})")
+    if not all(ok for ok, _ in held.values()):
+        raise AssertionError("rl (e): a module's learner on the card "
+                             "disagrees with the CPU")
+
+    algo = (PPOConfig().environment(env_creator=make_corridor)
+            .multi_agent(policies={"left", "right"},
+                         policy_mapping_fn=lambda aid, i: aid)
+            .env_runners(num_env_runners=0,
+                         num_envs_per_env_runner=RL_MA_ENVS,
+                         rollout_fragment_length=RL_MA_FRAGMENT)
+            .rl_module(hidden=RL_MA_HIDDEN).training(**RL_MA)
+            .learners(device="cuda").debugging(seed=0)).build()
+    update_ms = []
+    for group in algo.learner_group.groups.values():
+        _timed_updates(group.local, update_ms)
+    best, returns = -math.inf, []
+    t = time.perf_counter()
+    try:
+        for _ in range(RL_MA_ITERS):
+            m = algo.train()
+            returns.append(round(m["episode_return_mean"], 4))
+            best = max(best, m["episode_return_mean"])
+            if best >= RL_MA_RETURN:
+                break
+        wall = time.perf_counter() - t
+        steps = algo._timesteps
+    finally:
+        algo.stop()
+    log(f"rl (e) multi-agent PPO gate (the reference's test configuration: "
+        f"2 modules, hidden {RL_MA_HIDDEN}, {RL_MA_ENVS} envs x "
+        f"{RL_MA_FRAGMENT}, {RL_MA}, seed 0), learners on the card "
+        f"[{card}]: best joint return {best:.4f} after {len(returns)} "
+        f"iterations (gate >= {RL_MA_RETURN} within {RL_MA_ITERS}; means "
+        f"{returns}); {steps} agent steps in {wall:.3f} s = "
+        f"{steps / wall:.1f} agent steps/s; one module's update p50 "
+        f"{p50(update_ms):.3f} ms over {len(update_ms)}, first "
+        f"{update_ms[0]:.3f} ms, {sum(update_ms) / 1e3 / wall:.3f} of the "
+        f"wall time [{time.perf_counter() - t_part:.1f} s in the part]")
+    if not best >= RL_MA_RETURN:
+        raise AssertionError(f"rl (e): the corridor's best joint return "
+                             f"within {RL_MA_ITERS} iterations is {best}")
+
+
+def rl_dreamer_part(card: str) -> None:
+    """(f) DreamerV3 at XS on the numpy CartPole, learner on the card:
+    the algorithm's iterations (update ms, peak memory, device events
+    of one update), then one update held card vs CPU as RL_DV3_ITERS'
+    comment says."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch._private import prng, tree
+    from ray_tpu_torch.rllib import DreamerV3Config, DreamerV3Learner
+
+    t_part = time.perf_counter()
+    cfg = (DreamerV3Config().environment(env_creator=make_cartpole)
+           .learners(device="cuda").debugging(seed=0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    algo = cfg.build()
+    learner = algo._learner
+    update_ms = []
+    _timed_updates(learner, update_ms)
+    t = time.perf_counter()
+    try:
+        metrics = [algo.train() for _ in range(RL_DV3_ITERS)]
+        wall = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated()
+        state = learner.get_state()
+        batch = algo._replay.sample(cfg.batch_seqs)
+        spec = algo.module_spec
+    finally:
+        algo.stop()
+    losses = {k: v for k, v in metrics[-1].items()
+              if k == "loss" or k.startswith(("wm/", "ac/"))}
+    finite = all(np.isfinite(v) for m in metrics for k, v in m.items()
+                 if k == "loss" or k.startswith(("wm/", "ac/")))
+    log(f"rl (f) DreamerV3 XS (deter {cfg.deter_dim}, units {cfg.units}, "
+        f"{cfg.stoch_dims}x{cfg.stoch_classes} latents, horizon "
+        f"{cfg.horizon}, {cfg.batch_seqs} x {cfg.seq_len} sequences, "
+        f"{sum(v.size for v in tree.leaves(state['params']))} params) on "
+        f"CartPole, learner on the card [{card}]: {RL_DV3_ITERS} "
+        f"iterations, {len(update_ms)} updates in {wall:.3f} s; update p50 "
+        f"{p50(update_ms):.3f} ms, first {update_ms[0]:.3f} ms; peak "
+        f"memory {peak / 2**20:.1f} MiB; last iteration "
+        + ", ".join(f"{k} {v:.4g}" for k, v in losses.items())
+        + f"; every loss finite: {finite}")
+    if len(update_ms) < 16 or not finite:
+        raise AssertionError(f"rl (f): {len(update_ms)} updates, finite "
+                             f"losses {finite}")
+
+    key = torch.tensor([0, 13], dtype=torch.int64)
+    B, L = cfg.batch_seqs, cfg.seq_len
+
+    def fresh(dev):
+        out = DreamerV3Learner(spec, cfg, seed=0, device=dev)
+        out.set_state(state)
+        out._key = key.to(dev)
+        return out
+
+    learners = {dev: fresh(dev) for dev in ("cpu", "cuda")}
+    noise = {}
+    for dev, lrn in learners.items():
+        _, k = prng.split(lrn._key)
+        noise[dev] = {n: v.cpu() for n, v in lrn.draws(k, B, L).items()}
+    keys_equal = all(torch.equal(noise["cuda"][n], noise["cpu"][n])
+                     for n in ("k1", "k2", "obs_keys", "img_keys", "ka",
+                               "kz"))
+    g_ulps = 0.0
+    for n in ("obs", "act", "z"):
+        ref = noise["cpu"][n].numpy()
+        g_ulps = max(g_ulps, float((np.abs(noise["cuda"][n].numpy() - ref)
+                                    / (np.spacing(np.abs(ref)) + 2.0 ** -23)
+                                    ).max()))
+    m_gpu = learners["cuda"].update(batch)
+    s_gpu = learners["cuda"].get_state()
+    d_gpu = {k: v.cpu() for k, v in learners["cuda"].last_draws.items()}
+    learners["cpu"].update(batch)
+    d_cpu = learners["cpu"].last_draws
+    flips = {k: f"{int((d_gpu[k] != d_cpu[k]).sum())} of {d_gpu[k].numel()}"
+             for k in d_gpu}
+    replay = fresh("cpu")
+    replay.draws = lambda k, b, l: noise["cuda"]
+    m_rep = replay.update(batch)
+    s_rep = replay.get_state()
+    same = {k: int((replay.last_draws[k] != d_gpu[k]).sum()) for k in d_gpu}
+    metric = _rl_metric_err(m_gpu, m_rep)
+    errs = _rl_leaf_errs(s_gpu, s_rep)
+    side = max(e for p, e, _, _ in errs if not p.startswith("/params/"))
+    params = [(p.startswith("/params/actor/"), e, n, size)
+              for p, e, n, size in errs if p.startswith("/params/")]
+    beyond, total = (sum(x) for x in zip(*[
+        (n, size) for actor, _, n, size in params if not actor]))
+    actor_beyond, actor_total = (sum(x) for x in zip(*[
+        (n, size) for actor, _, n, size in params if actor]))
+    worst = max(e for _, e, _, _ in params)
+    key_chain = torch.equal(learners["cuda"]._key.cpu(),
+                            learners["cpu"]._key)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        learners["cuda"].update(batch)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t) * 1e3
+    busy_ms, rows = device_rows(prof)
+    events = sum(c for _, _, c in rows)
+    ok = (keys_equal and key_chain and g_ulps <= GUMBEL_ULPS
+          and not any(same.values()) and metric <= RL_TOL
+          and side <= RL_TOL and beyond <= RL_FLIPS * total)
+    log(f"rl (f) one DreamerV3 update card vs CPU from the state after "
+        f"the run, one replay batch, key {key.tolist()} [{card}]: keys "
+        f"(k1, k2, split(k1, {L}), split(k2, {cfg.horizon}), ka, kz) "
+        f"bit-equal {keys_equal}, key chains equal after {key_chain}; "
+        f"Gumbel noise worst {g_ulps:.3g} (ulp + 2**-23) units (bound "
+        f"{GUMBEL_ULPS}); samples flipped card vs CPU, each on its own "
+        f"noise: {flips}; the CPU rerun on the card's noise draws the "
+        f"card's samples ({same} differ): metrics {metric:.3g}, Adam "
+        f"moments and slow critic {side:.3g} (tolerance {RL_TOL}), "
+        f"{beyond} of {total} parameters outside the actor beyond "
+        f"{RL_TOL} (at most {RL_FLIPS:g} of them), the actor's "
+        f"{actor_beyond} of {actor_total} (worst leaf {worst:.3g}); one "
+        f"profiled update "
+        f"{prof_ms:.3f} ms, {events} device events (kernels, copies, "
+        f"memsets), device busy {busy_ms:.3f} ms "
+        f"[{time.perf_counter() - t_part:.1f} s in the part]")
+    if not ok:
+        raise AssertionError("rl (f): the DreamerV3 update on the card "
+                             "disagrees with the CPU")
+
+
+def rl_impala_part(card: str) -> None:
+    """(g) IMPALA at bench_rl.py's Pong-shaped configuration, learner on
+    the card: env steps/s through the pipeline (runner and aggregator
+    threads), learner update ms; one V-trace batch's update card vs CPU
+    (held as (c)'s conv learner); then the reference's APPO smoke."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib import APPOConfig, IMPALAConfig, PPOLearner
+
+    t_part = time.perf_counter()
+    cfg = (IMPALAConfig().environment(env_creator=make_synth_atari)
+           .env_runners(num_env_runners=2, num_envs_per_env_runner=2,
+                        rollout_fragment_length=32)
+           .rl_module(use_conv=True)
+           .training(num_aggregation_workers=1, train_batch_size=256,
+                     lr=3e-4)
+           .learners(device="cuda").debugging(seed=0))
+    algo = cfg.build()
+    update_ms, first = [], []
+    _timed_updates(algo.learner_group.local, update_ms, first)
+    t = time.perf_counter()
+    try:
+        metrics = [algo.train() for _ in range(RL_IMPALA_ITERS)]
+        wall = time.perf_counter() - t
+        steps = algo._timesteps
+        spec = algo.module_spec
+    finally:
+        algo.stop()
+    fragments = sum(m["num_fragments"] for m in metrics)
+    finite = all(np.isfinite(m["total_loss"]) for m in metrics)
+    (batch,), kw = first[0]
+    got = {}
+    for dev in ("cpu", "cuda"):
+        learner = PPOLearner(spec, lr=cfg.lr, clip_param=cfg.clip_param,
+                             vf_coeff=cfg.vf_coeff,
+                             entropy_coeff=cfg.entropy_coeff,
+                             grad_clip=cfg.grad_clip, seed=0, device=dev)
+        got[dev] = (learner.update(batch, **kw), learner.get_state())
+    metric = _rl_metric_err(got["cuda"][0], got["cpu"][0])
+    ok, text = _rl_hold(got["cuda"][1], got["cpu"][1], conv=True)
+    log(f"rl (g) IMPALA, bench_rl.py's Pong-shaped configuration (2 "
+        f"Nature-CNN runner threads x 2 envs of 84x84x4, 6 actions, "
+        f"fragments of 32, 1 aggregator thread, lr 3e-4, seed 0), learner "
+        f"on the card [{card}]: {RL_IMPALA_ITERS} iterations, {steps} env "
+        f"steps ({fragments} fragments) in {wall:.3f} s = "
+        f"{steps / wall:.1f} env steps/s; learner update (one pass, "
+        f"minibatch {cfg.minibatch_size}) p50 {p50(update_ms):.3f} ms, "
+        f"first {update_ms[0]:.3f} ms, {sum(update_ms) / 1e3 / wall:.3f} of "
+        f"the wall time; losses finite: {finite}; the first V-trace batch "
+        f"({len(batch['obs'])} rows) card vs CPU from the same weights: "
+        f"metrics {metric:.3g} (tolerance {RL_TOL}), state {text}")
+    if not finite or not ok or metric > RL_TOL:
+        raise AssertionError("rl (g): IMPALA's learner on the card "
+                             "disagrees with the CPU, or a loss is not "
+                             "finite")
+
+    appo = (APPOConfig().environment(env_creator=make_cartpole)
+            .env_runners(num_env_runners=2, num_envs_per_env_runner=2,
+                         rollout_fragment_length=64)
+            .training(train_batch_size=256, minibatch_size=128,
+                      num_epochs=2, lr=5e-4, num_aggregation_workers=1)
+            .learners(device="cuda").debugging(seed=0)).build()
+    try:
+        m = [appo.train() for _ in range(RL_APPO_ITERS)][-1]
+    finally:
+        appo.stop()
+    log(f"rl (g) APPO smoke (the reference's: CartPole, 2 runner threads x "
+        f"2 envs, fragments of 64, 2 epochs, 1 aggregator) [{card}]: "
+        f"{RL_APPO_ITERS} iterations, last total_loss "
+        f"{m['total_loss']:.6g}, {m['num_env_steps_trained']} env steps "
+        f"trained [{time.perf_counter() - t_part:.1f} s in the part]")
+    if not np.isfinite(m["total_loss"]) or m["num_env_steps_trained"] <= 0:
+        raise AssertionError("rl (g): the APPO smoke failed")
 
 
 def serve(params, cfg, reqs, *, device, attn_kernel=None, seeds=None,

@@ -1,6 +1,7 @@
 """Algorithm + AlgorithmConfig — the port of ``ray_tpu/rllib/algorithm.py``:
-sample → learn → sync-weights iterations on one host, learners on a torch
-device (``AlgorithmConfig.learners(device=...)``; the card unless told
+sample → learn → sync-weights iterations on one host (env runners local
+or on runner threads), learners on a torch device
+(``AlgorithmConfig.learners(device=...)``; the card unless told
 otherwise).
 
 The config is copied, with the learners' device in place of the
@@ -172,12 +173,13 @@ class AlgorithmConfig:
 
     def build(self) -> "Algorithm":
         if self.policies:
-            # A single-agent algorithm would silently train a wrong setup
-            # on a dict-keyed env.
+            # Only configs that override build() (PPO) dispatch to a
+            # multi-agent algorithm; anything else would silently train
+            # a wrong single-agent setup on a dict-keyed env.
             raise NotImplementedError(
                 f"multi_agent() is not supported by "
-                f"{type(self).__name__}: ray_tpu_torch has not ported "
-                f"multi-agent training (ray_tpu.rllib.multi_agent) yet")
+                f"{type(self).__name__}; multi-agent training is "
+                f"available for PPO (PPOConfig.multi_agent(...))")
         return self.algo_class(self)  # type: ignore[attr-defined]
 
 
@@ -188,7 +190,11 @@ class Algorithm:
         self.config = config
         self.module_spec = self._make_module_spec(config)
         self.env_runner_group = self._build_env_runner_group()
-        self.learner_group = self._build_learner_group()
+        try:
+            self.learner_group = self._build_learner_group()
+        except BaseException:
+            self.env_runner_group.stop()    # its runner threads
+            raise
         self.iteration = 0
         self._timesteps = 0
         # initial weight sync so rollouts start from learner weights
@@ -200,6 +206,8 @@ class Algorithm:
         return config.module_spec()
 
     def _build_env_runner_group(self):
+        """Overridable: multi-agent algorithms swap in a runner group
+        that speaks the dict-keyed env API."""
         config = self.config
         return EnvRunnerGroup(
             config.make_env_creator(), self.module_spec,

@@ -3,9 +3,9 @@ the port of ``ray_tpu/rllib/env_runner.py``.
 
 :class:`SampleBatch` and :class:`SingleAgentEnvRunner` are copied
 (numpy; the module's rollout forward, so sampling never touches the
-card). The reference's remote runners are runtime actors
-(``env_runner.py:195-203``) and are not ported: the group runs one local
-runner.
+card). Where the reference's group makes remote runner actors
+(``env_runner.py:195-203``), this one hosts each runner on a thread of
+its own (:mod:`._threads`), with the reference's seeds and call order.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
+from ._threads import SAMPLE_TIMEOUT_S, SYNC_TIMEOUT_S, RunnerThread, get
 from .rl_module import RLModuleSpec
 
 
@@ -175,33 +176,78 @@ class SingleAgentEnvRunner:
 
 
 class EnvRunnerGroup:
-    """One local env runner (reference ``EnvRunnerGroup`` with
-    ``num_env_runners == 0``, its local worker). Remote runners are the
-    reference runtime's actors; ``num_env_runners > 0`` raises."""
+    """Env runners (reference ``EnvRunnerGroup.foreach_worker``).
+
+    ``num_env_runners == 0`` → a single local runner (debug mode, like the
+    reference's local worker); else ``num_env_runners`` runners, runner
+    ``i`` seeded ``seed + 1000 * (i + 1)`` and on a thread of its own."""
 
     def __init__(self, env_creator, module_spec: RLModuleSpec,
                  num_env_runners: int = 0, num_envs_per_runner: int = 1,
                  rollout_fragment_length: int = 200, seed: int = 0,
                  connector_factory: Optional[Callable] = None):
-        if num_env_runners:
-            raise NotImplementedError(
-                f"num_env_runners={num_env_runners}: remote env runners are "
-                f"runtime actors (ray_tpu.rllib.env_runner.EnvRunnerGroup), "
-                f"which ray_tpu_torch does not port; use num_env_runners=0 "
-                f"(one local runner; num_envs_per_env_runner sets its "
-                f"vector width)")
-        self.local = SingleAgentEnvRunner(
-            env_creator, module_spec, num_envs_per_runner,
-            rollout_fragment_length, seed, connector_factory)
+        self._start(SingleAgentEnvRunner, num_env_runners, seed,
+                    lambda s: (env_creator, module_spec,
+                               num_envs_per_runner, rollout_fragment_length,
+                               s, connector_factory))
+
+    def _start(self, cls, num_env_runners: int, seed: int,
+               args: Callable[[int], tuple]):
+        """One local ``cls(*args(seed))``, or ``num_env_runners`` on
+        runner threads, runner ``i`` built from ``args(seed + 1000 * (i +
+        1))``."""
+        self.local = None
+        self.remote: List[RunnerThread] = []
+        if num_env_runners == 0:
+            self.local = cls(*args(seed))
+            return
+        try:
+            for i in range(num_env_runners):
+                self.remote.append(RunnerThread(
+                    cls, *args(seed + 1000 * (i + 1)),
+                    name=f"{cls.__name__}-{i}"))
+        except BaseException:
+            self.stop()
+            raise
 
     def sync_weights(self, weights):
-        self.local.set_weights(weights)
+        if self.local:
+            self.local.set_weights(weights)
+        if self.remote:
+            # One host copy shared by every runner: runners only read it.
+            get([r.call("set_weights", weights) for r in self.remote],
+                timeout=SYNC_TIMEOUT_S)
 
-    def sample(self) -> List[SampleBatch]:
-        return [self.local.sample()]
+    def sample(self) -> List[Any]:
+        if self.local:
+            return [self.local.sample()]
+        return get([r.call("sample") for r in self.remote],
+                   timeout=SAMPLE_TIMEOUT_S)
+
+    def sample_async_refs(self):
+        """Queue sample() on every runner; ``(runner, future)`` pairs
+        (the IMPALA path)."""
+        return [(r, r.call("sample")) for r in self.remote]
 
     def get_metrics(self) -> Dict[str, Any]:
-        return self.local.get_metrics()
+        if self.local:
+            return self.local.get_metrics()
+        return self._aggregate(get([r.call("get_metrics")
+                                    for r in self.remote],
+                                   timeout=SYNC_TIMEOUT_S))
+
+    @staticmethod
+    def _aggregate(ms: List[Dict[str, Any]]) -> Dict[str, Any]:
+        total = sum(m["num_episodes"] for m in ms)
+        means = [m["episode_return_mean"] for m in ms
+                 if m["num_episodes"] > 0]
+        return {
+            "num_episodes": total,
+            "episode_return_mean": float(np.mean(means)) if means else 0.0,
+            "episode_return_max": max((m["episode_return_max"]
+                                       for m in ms), default=0.0),
+        }
 
     def stop(self):
-        pass
+        for r in self.remote:
+            r.stop()

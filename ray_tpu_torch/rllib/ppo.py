@@ -20,9 +20,9 @@ class PPOConfig(AlgorithmConfig):
 
     def build(self) -> "Algorithm":
         if self.policies:  # .multi_agent(...) was called
-            raise NotImplementedError(
-                "multi-agent PPO (ray_tpu.rllib.multi_agent.MultiAgentPPO) "
-                "is not ported to ray_tpu_torch yet")
+            from .multi_agent import MultiAgentPPO
+
+            return MultiAgentPPO(self)
         return PPO(self)
 
 

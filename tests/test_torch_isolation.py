@@ -11,8 +11,10 @@ engine, taking a nano train step (flash attention, ``dots`` remat), and
 serving one request and taking one train step with a nano
 Mixture-of-Experts model, one ResNet-18 forward at inference (through
 the predictor's ``uint8_input`` path) and one in training, serving
-one request on a tp=2 engine, and one local PPO iteration on a numpy
-environment and one SAC update with CQL's regularizer, in
+one request on a tp=2 engine, one local PPO iteration on a numpy
+environment, one SAC update with CQL's regularizer, one DreamerV3
+update, one multi-agent PPO iteration and one IMPALA iteration on two
+runner threads, in
 a fresh interpreter where ``jax`` and ``ml_dtypes`` are poisoned in
 ``sys.modules`` and an import hook refuses them, ``optax``,
 ``gymnasium``, and ``ray_tpu`` and ``ray_tpu.*`` (but not
@@ -61,7 +63,9 @@ def test_no_jax_or_reference_imports_in_source():
                  "rllib/env_runner.py", "rllib/algorithm.py",
                  "rllib/ppo.py", "rllib/replay_buffer.py", "rllib/dqn.py",
                  "rllib/sac.py", "rllib/offline_data.py", "rllib/cql.py",
-                 "rllib/bc.py", "rllib/marwil.py"):
+                 "rllib/bc.py", "rllib/marwil.py", "rllib/_threads.py",
+                 "rllib/multi_agent.py", "rllib/dreamerv3.py",
+                 "rllib/impala.py", "rllib/appo.py"):
         assert os.path.join(PKG, must) in files, must
     files.append(os.path.join(ROOT, "chip_smoke.py"))
     bad = []
@@ -261,6 +265,53 @@ m = sac.update({"obs": rng.standard_normal((8, 3)),
                 "next_obs": rng.standard_normal((8, 3)),
                 "dones": np.zeros(8)})
 assert m["cql_loss"] > 0 and np.isfinite(m["critic_loss"]), m
+# DreamerV3: one update at a tiny size.
+cfg = rllib.DreamerV3Config().environment(env_creator=Walk)
+cfg.deter_dim = cfg.units = 16
+cfg.stoch_dims = cfg.stoch_classes = 2
+cfg.horizon, cfg.seq_len, cfg.batch_seqs = 3, 4, 2
+dv3 = rllib.DreamerV3Learner(cfg.module_spec(), cfg, device="cpu")
+m = dv3.update({"obs": rng.standard_normal((2, 4, 3)).astype(np.float32),
+                "a_prev": rng.integers(0, 2, (2, 4)),
+                "rewards": rng.random((2, 4)).astype(np.float32),
+                "terms": np.zeros((2, 4), np.float32),
+                "is_first": np.eye(2, 4, dtype=np.float32)})
+assert np.isfinite(m["loss"]), m
+
+
+class Pair(rllib.MultiAgentEnv):
+    possible_agents = ["a", "b"]
+    observation_spaces = {a: Walk.observation_space for a in possible_agents}
+    action_spaces = {a: Walk.action_space for a in possible_agents}
+
+    def reset(self, *, seed=None, options=None):
+        self.t = 0
+        return {a: np.full(3, 0.0, np.float32) for a in "ab"}, {}
+
+    def step(self, actions):
+        self.t += 1
+        obs = {a: np.full(3, self.t, np.float32) for a in "ab"}
+        rew = {a: float(v) for a, v in actions.items()}
+        return obs, rew, {"__all__": self.t >= 5}, {"__all__": False}, {}
+
+
+# Multi-agent PPO: one iteration, a learner group per module.
+algo = (rllib.PPOConfig().environment(env_creator=Pair)
+        .multi_agent(policies={"a", "b"})
+        .env_runners(rollout_fragment_length=8).rl_module(hidden=(8,))
+        .training(train_batch_size=16, minibatch_size=8, num_epochs=1)
+        .learners(device="cpu")).build()
+m = algo.train()
+algo.stop()
+assert np.isfinite(m["module/a/total_loss"]), m
+# IMPALA: one iteration on two runner threads.
+algo = (rllib.IMPALAConfig().environment(env_creator=Walk)
+        .env_runners(num_env_runners=2, rollout_fragment_length=8)
+        .rl_module(hidden=(8, 8)).training(minibatch_size=8)
+        .learners(device="cpu").debugging(seed=0)).build()
+m = algo.train()
+algo.stop()
+assert np.isfinite(m["total_loss"]) and m["num_fragments"] >= 1, m
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in BLOCKED
                 and sys.modules[m] is not None)

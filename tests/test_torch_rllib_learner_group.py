@@ -1,5 +1,5 @@
-"""The port's ``LearnerGroup`` over ``RankPool`` ranks on the CPU, and the
-refusals of what the port does not run.
+"""The port's ``LearnerGroup`` over ``RankPool`` ranks on the CPU, runner
+threads under PPO, and multi-agent configs.
 
 Two CPU rank processes each hold a ``PPOLearner``; an update splits the
 batch as the reference does (``ray_tpu/rllib/learner.py:215-222``) and
@@ -116,19 +116,45 @@ def test_mean_state_keeps_dtypes():
 
 
 def test_remote_env_runners_are_refused():
-    cfg = (P.PPOConfig().environment("CartPole-v1")
-           .env_runners(num_env_runners=2).learners(device="cpu"))
-    with pytest.raises(NotImplementedError,
-                       match="remote env runners are runtime actors"):
-        cfg.build()
+    """No longer refused: ``num_env_runners=2`` builds two runners on
+    threads of this process (the reference's remote runners are runtime
+    actors), and PPO's iteration samples one fragment from each, in
+    runner order, and broadcasts to both."""
+    algo = (P.PPOConfig().environment("CartPole-v1")
+            .env_runners(num_env_runners=2, num_envs_per_env_runner=2,
+                         rollout_fragment_length=16)
+            .rl_module(hidden=(16, 16))
+            .training(train_batch_size=64, minibatch_size=32, num_epochs=1)
+            .learners(device="cpu").debugging(seed=0)).build()
+    try:
+        assert algo.env_runner_group.local is None
+        m = algo.train()
+        assert m["num_env_steps_trained"] == 64
+        weights = algo.learner_group.get_weights()
+        for runner in algo.env_runner_group.remote:
+            assert tree_err(runner._obj.module.params, weights) == 0.0
+    finally:
+        algo.stop()
 
 
 @pytest.mark.parametrize("config", ["PPOConfig", "DQNConfig"])
 def test_multi_agent_build_is_refused(config):
-    cfg = (getattr(P, config)().environment("CartPole-v1")
-           .multi_agent(policies={"a": None, "b": None})
+    """Multi-agent PPO is built (a MultiAgentPPO); every other algorithm
+    still refuses ``.multi_agent(...)`` with the reference's message."""
+    from test_rllib_multi_agent import ParallelPairEnv
+
+    cfg = (getattr(P, config)().environment(env_creator=ParallelPairEnv)
+           .multi_agent(policies={"a_0": None, "a_1": None})
+           .rl_module(hidden=(8,))
            .learners(device="cpu"))
-    with pytest.raises(NotImplementedError, match="multi-agent"):
+    if config == "PPOConfig":
+        algo = cfg.build()
+        algo.stop()
+        assert isinstance(algo, P.MultiAgentPPO)
+        assert set(algo.learner_group.groups) == {"a_0", "a_1"}
+        return
+    with pytest.raises(NotImplementedError,
+                       match="multi-agent training is available for PPO"):
         cfg.build()
 
 
