@@ -71,6 +71,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
    stream equal to the uninterrupted one, ``supervise`` False after a
    second death, and ``drain`` of a busy engine (every stream equal to
    the colocated kernel engine's);
+   then offline batch inference (``batch_infer_phase``,
+   ``ray_tpu_torch.data.llm.BatchInferencer``): nano f32 rows through
+   K1 on the card equal to the CPU's at T=0 and seeded 0.8; 128 GPT-2
+   small rows (prompts of 16-512 tokens, two sharing a 250-token
+   prefix, 32 new tokens at seeded T=0.8, blocks of 16, queue factor 2)
+   on a K1 engine against a gather engine (bf16 near-ties only, taken
+   with each lane's Gumbel noise), K1 on every decode step, no retry or
+   restart, slot occupancy at least 0.8, the admission backlog within
+   twice its bound, tok/s and peak memory; a run left after two blocks
+   and resumed from its progress log on a fresh engine (the logged
+   blocks admitted nothing, no row lost or repeated, the rest held to
+   the uninterrupted run); a ``driver_die`` mid-run that costs one
+   replay;
    then tensor-parallel decode: ``DecodeEngine(tp=2)`` on a gloo group
    of two ranks on this card (this process and a follower process),
    K1 over each rank's 6 heads held against its plain version (bf16
@@ -2703,13 +2716,34 @@ def parting_steps(got, ref) -> dict:
             for i, (g, r) in enumerate(zip(got, ref)) if not np_equal(g, r)}
 
 
-def tie_ratios(model, got, ref, parted) -> dict:
+def gumbel_noise(seed: int, j: int, vocab: int, device):
+    """The Gumbel noise a seeded engine lane adds to ``logits / T`` for
+    its token ``j`` (0 is the prefill's): the lane's key is
+    ``PRNGKey(seed)`` and each token first splits it into (carry, sub),
+    as ``gpt_decode._sample`` and ``_sample_slots`` do; a ``[1, V]`` draw
+    equals a ``[V]`` one (row-major counters)."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch._private import prng
+
+    key = torch.from_numpy(prng.PRNGKey(seed).astype(np.int64)).to(device)
+    for _ in range(j + 1):
+        key, sub = prng.split(key).unbind(0)
+    return prng.gumbel(sub, (vocab,))
+
+
+def tie_ratios(model, got, ref, parted, sampling=None) -> dict:
     """{stream: the parting's distance from a tie}: at the first parting
     step ``j`` of stream ``i``, the f32 logits ``L`` of the shared context
     (``reqs[i]``'s prompt and ``ref[i][:j]``, through ``params`` upcast
     to f32) give ``(max L - min(L[got], L[ref])) / (TIE_ERRS * eps)``,
     where ``eps`` is the largest gap between the bf16 forward's logits
-    and ``L``. At most 1 is a near-tie (``TIE_ERRS``)."""
+    and ``L``. At most 1 is a near-tie (``TIE_ERRS``). With ``sampling``
+    = (temperature T, per-stream seeds) the decision was ``argmax(L / T
+    + g)`` with the lane's Gumbel noise ``g`` (:func:`gumbel_noise`), the
+    same for both engines: the gap is taken in ``L / T + g`` and the
+    bound is ``TIE_ERRS * eps / T``."""
     import dataclasses
 
     import numpy as np
@@ -2727,6 +2761,11 @@ def tie_ratios(model, got, ref, parted) -> dict:
             ctx = np.concatenate([reqs[i][0], ref[i][:j]])[None]
             l32 = gpt.forward(p32, ctx, c32)[0, -1]
             eps = (gpt.forward(params, ctx, c16)[0, -1] - l32).abs().max()
+            if sampling is not None:
+                temp, seeds = sampling
+                l32 = l32 / temp + gumbel_noise(seeds[i], j, l32.shape[0],
+                                                l32.device)
+                eps = eps / temp
             gap = l32.max() - torch.minimum(l32[int(got[i][j])],
                                             l32[int(ref[i][j])])
             out[i] = float(gap / (TIE_ERRS * eps))
@@ -2734,17 +2773,19 @@ def tie_ratios(model, got, ref, parted) -> dict:
 
 
 def compare(name, got, ref, precision, what="kernel vs gather",
-            model=None, firsts_equal=True):
+            model=None, firsts_equal=True, sampling=None):
     """Hold ``got`` against ``ref`` stream for stream: every first token
     equal, and at bf16 every parting a near-tie of ``model`` = (params,
-    cfg, reqs) (``tie_ratios`` at most 1), else at most
+    cfg, reqs) (``tie_ratios`` at most 1; ``sampling`` = (temperature,
+    seeds) for seeded streams), else at most
     ``MAX_DIVERGED[precision]`` streams parted. ``firsts_equal=False``
     where the two prefills differ too (tensor-parallel sums): a parting
-    at the first token is then held like any other."""
+    at the first token is then held like any other. Returns the number
+    of streams that parted."""
     firsts = all(g[0] == r[0] for g, r in zip(got, ref))
     where = parting_steps(got, ref)
     if precision == "bf16":
-        ratios = tie_ratios(model, got, ref, where)
+        ratios = tie_ratios(model, got, ref, where, sampling)
         worst = max(ratios.values(), default=0.0)
         shown = {i: round(r, 4) for i, r in ratios.items()}
         log(f"{name}: {what} streams: {len(where)}/{len(got)} diverge, "
@@ -2755,7 +2796,7 @@ def compare(name, got, ref, precision, what="kernel vs gather",
                 not all(r <= 1 for r in ratios.values()):
             raise AssertionError(f"{name}: {what}: a stream parts at more "
                                  f"than a bf16 near-tie")
-        return
+        return len(where)
     budget = MAX_DIVERGED[precision]
     if isinstance(budget, float):
         budget = int(budget * len(got))
@@ -2765,6 +2806,7 @@ def compare(name, got, ref, precision, what="kernel vs gather",
     if (firsts_equal and not firsts) or len(where) > budget:
         raise AssertionError(f"{name}: {what} outside the divergence "
                              f"budget")
+    return len(where)
 
 
 #: Gumbel noise on the card against the CPU: ``log`` may round one ulp
@@ -3271,6 +3313,280 @@ def lifecycle_phase(params, cfg, reqs, greedy, card) -> None:
     if not all(same):
         raise AssertionError("drain: streams differ from the colocated "
                              "kernel engine")
+
+
+# ------------------------------------------------------- batch inference
+#: The batch-inference pipeline at GPT-2-small width: 128 rows in blocks
+#: of 16, 32 new tokens a row at T=0.8 (row seeds BATCH_SEED + the row's
+#: index), admission bounded at queue_factor 2, on the serving phases'
+#: engine knobs.
+BATCH_ROWS, BATCH_BLOCK, BATCH_MAX_NEW = 128, 16, 32
+BATCH_TEMP, BATCH_SEED, BATCH_QF = 0.8, 100, 2.0
+BATCH_KW = dict(slots=16, chunk=8, max_len=1024, page_size=16)
+#: The reference's smoke bar for slot occupancy (tests/test_data_llm.py:400).
+BATCH_MIN_OCCUPANCY = 0.8
+#: The nano f32 card-vs-CPU pipeline: 24 rows in blocks of 4, 12 new
+#: tokens a row, on phase 4's engine knobs.
+BATCH_NANO = dict(rows=24, block=4, max_new=12, seed=11)
+BATCH_NANO_KW = dict(slots=4, chunk=4, max_len=128, page_size=8)
+
+
+def batch_rows(n: int, vocab: int, lens=(16, 513), shared=(5, 12),
+               seed: int = 7) -> list:
+    """``n`` rows ``{"rid", "prompt"}`` drawn from a fixed numpy seed:
+    prompts of ``lens`` tokens below ``vocab`` (and below GPT-2's 50257
+    real ids); the rows in ``shared`` open with one 250-token prefix."""
+    import numpy as np
+
+    vocab = min(vocab, 50257)
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, vocab, (250,))
+    rows = []
+    for i in range(n):
+        if i in shared:
+            p = np.concatenate([prefix, rng.integers(
+                0, vocab, (int(rng.integers(16, 200)),))])
+        else:
+            p = rng.integers(0, vocab, (int(rng.integers(*lens)),))
+        rows.append({"rid": i, "prompt": p.astype(np.int32)})
+    return rows
+
+
+def batch_run(eng, rows, block, max_new, seed, *, progress=None,
+              stop_after=None):
+    """``BatchInferencer`` over ``rows`` in blocks of ``block`` on one
+    engine, consumed by this thread (the pipeline's driver); with
+    ``stop_after`` the consumer leaves after that many blocks. Returns
+    (rows out, the inferencer, the deepest admission backlog seen: by the
+    saturation policy at each admission decision and by the consuming
+    loop at each block)."""
+    from ray_tpu_torch.data import block as B
+    from ray_tpu_torch.data import llm
+
+    class DepthProbe(llm.EngineSaturationPolicy):
+        peak = 0
+
+        def can_add_input(self, num_in_flight):
+            self.peak = max([self.peak]
+                            + [e.queue_depth() for e in self.engines])
+            return super().can_add_input(num_in_flight)
+
+    policy = DepthProbe([eng], BATCH_QF)
+    bi = llm.BatchInferencer(eng, max_new=max_new, seed=seed,
+                             policy=policy, progress_path=progress)
+    blocks = [B.rows_to_block(rows[i:i + block])
+              for i in range(0, len(rows), block)]
+    out, depth = [], 0
+    gen = bi.run(blocks)
+    try:
+        for k, blk in enumerate(gen):
+            depth = max(depth, eng.queue_depth())
+            out += list(B.iter_rows(blk))
+            if stop_after is not None and k + 1 >= stop_after:
+                break
+    finally:
+        gen.close()
+    return out, bi, max(depth, policy.peak)
+
+
+def batch_infer_phase(params, cfg, card) -> None:
+    """Offline batch inference (``ray_tpu_torch.data.llm``) over K1
+    engines: (a) nano f32 through ``BatchInferencer``, card + K1 against
+    CPU + plain, rows and tokens identical at T=0 and seeded T=0.8; (b)
+    GPT-2 small bf16, 128 rows at T=0.8 against the same pipeline over a
+    gather engine (bf16 near-ties only), K1 on every decode step, no
+    retry or restart, slot occupancy and the admission backlog within
+    their bounds, tok/s; (c) exactly once: a run left after two blocks
+    resumed on a fresh engine from its progress log (committed blocks
+    served with no admission, no row lost or repeated, the regenerated
+    rows held to (b)'s), then a ``driver_die`` mid-run that costs one
+    replay."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.data import llm
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.ops import paged_attention as pa
+    from ray_tpu_torch.serve.engine import DecodeEngine
+
+    t_phase = time.perf_counter()
+    # (a) nano f32: card + K1 against CPU + plain.
+    nano = dataclasses.replace(gpt.CONFIGS["nano"], dtype=torch.float32)
+    p_nano = gpt.init_params(nano, seed=0, device="cpu")
+    nrows = batch_rows(BATCH_NANO["rows"], nano.vocab_size, lens=(5, 71),
+                       shared=())
+    nb, nm, ns = (BATCH_NANO[k] for k in ("block", "max_new", "seed"))
+    for temp in (0.0, 0.8):
+        outs = {}
+        for dev, kernel in (("cpu", "gather"), ("cuda", "cuda")):
+            eng = DecodeEngine(p_nano, nano, temperature=temp,
+                               attn_kernel=kernel, device=dev,
+                               **BATCH_NANO_KW)
+            try:
+                pa.launches = 0
+                outs[kernel], bi, _ = batch_run(eng, nrows, nb, nm, ns)
+                launches, st = pa.launches, eng.stats()
+            finally:
+                eng.shutdown()
+        want = nano.n_layer * BATCH_NANO_KW["chunk"] * st["dispatches"]
+        if launches != want or launches == 0:
+            raise AssertionError(f"batch nano T={temp}: K1 launches "
+                                 f"{launches}, want {want}")
+        got, ref = outs["cuda"], outs["gather"]
+        same = [r["rid"] for r in got] == [r["rid"] for r in ref] == list(
+            range(len(nrows))) and all(
+            np_equal(a["generated"], b["generated"])
+            for a, b in zip(got, ref))
+        if not same or bi.stats["tokens"] != nm * len(nrows):
+            raise AssertionError(f"batch nano f32 T={temp}: card + K1 rows "
+                                 f"differ from CPU + plain")
+        log(f"batch nano f32 T={temp}: {len(got)} rows in "
+            f"{bi.stats['blocks']} blocks, card + K1 == CPU + plain (rows, "
+            f"order, tokens); K1 launches {launches}")
+
+    # (b) GPT-2 small bf16 at T=0.8: K1 against gather.
+    dev = torch.device("cuda")
+    rows = batch_rows(BATCH_ROWS, cfg.vocab_size)
+    reqs = [(r["prompt"], BATCH_MAX_NEW) for r in rows]
+    sampling = (BATCH_TEMP, [BATCH_SEED + i for i in range(len(rows))])
+    model = (params, cfg, reqs)
+    n_blocks = BATCH_ROWS // BATCH_BLOCK
+    args = (BATCH_BLOCK, BATCH_MAX_NEW, BATCH_SEED)
+
+    def engine(kernel, **kw):
+        return DecodeEngine(params, cfg, temperature=BATCH_TEMP,
+                            attn_kernel=kernel, device=dev, **BATCH_KW,
+                            **kw)
+
+    def well_formed(name, out):
+        if [r["rid"] for r in out] != list(range(len(rows))):
+            raise AssertionError(f"{name}: rows lost, repeated or out of "
+                                 f"order")
+        check_streams(name, [r["generated"] for r in out], reqs,
+                      cfg.vocab_size)
+        return [r["generated"] for r in out]
+
+    eng = engine("gather")
+    try:
+        ref = well_formed("batch gather", batch_run(eng, rows, *args)[0])
+    finally:
+        eng.shutdown()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = engine("cuda")
+    try:
+        pa.launches = 0
+        t0 = time.perf_counter()
+        out, bi, depth = batch_run(eng, rows, *args)
+        wall = time.perf_counter() - t0
+        launches, st = pa.launches, eng.stats()
+    finally:
+        eng.shutdown()
+    peak = torch.cuda.max_memory_allocated()
+    got = well_formed("batch K1", out)
+    want = cfg.n_layer * BATCH_KW["chunk"] * st["dispatches"]
+    bound = 2 * BATCH_QF * BATCH_KW["slots"]
+    log(f"batch bf16 [{card}]: {len(rows)} rows in {bi.stats['blocks']} "
+        f"blocks, {bi.stats['tokens']} tokens in {wall:.4f} s = "
+        f"{bi.stats['tokens'] / wall:.2f} tok/s; K1 launches {launches} "
+        f"(want n_layer*chunk*dispatches = {want}); avg occupancy "
+        f"{st['avg_occupancy']:.4f} (bar {BATCH_MIN_OCCUPANCY}); deepest "
+        f"admission backlog {depth} (bound {bound:.0f}); retries "
+        f"{bi.stats['retries']}, stream resumes "
+        f"{bi.stats['stream_resumes']}, driver restarts "
+        f"{st['driver_restarts']}; prefix hits {st['prefix_hits']}; peak "
+        f"memory {peak / 2**20:.1f} MiB")
+    if launches != want or launches == 0:
+        raise AssertionError("batch bf16: K1 did not run on every decode "
+                             "step")
+    if bi.stats["retries"] or bi.stats["stream_resumes"] \
+            or st["driver_restarts"]:
+        raise AssertionError("batch bf16: an undisturbed run retried or "
+                             "restarted")
+    if st["avg_occupancy"] < BATCH_MIN_OCCUPANCY:
+        raise AssertionError(f"batch bf16: slot occupancy "
+                             f"{st['avg_occupancy']:.4f} under the bar")
+    if depth > bound:
+        raise AssertionError(f"batch bf16: admission backlog {depth} past "
+                             f"{bound}")
+    compare("batch bf16 T=0.8", got, ref, "bf16", model=model,
+            sampling=sampling)
+
+    # (c) exactly once: leave after two blocks, resume from the log.
+    log_dir = tempfile.mkdtemp(prefix="batch_progress_")
+    try:
+        eng = engine("cuda", prefix_cache=False)
+        try:
+            first, _, _ = batch_run(eng, rows, *args, progress=log_dir,
+                                    stop_after=2)
+        finally:
+            eng.shutdown()
+        committed = llm.ProgressLog.scan(log_dir)
+        if not 2 <= len(committed) < n_blocks:
+            raise AssertionError(f"batch resume: {sorted(committed)} "
+                                 f"committed before the consumer left")
+        eng = engine("cuda", prefix_cache=False)
+        try:
+            pa.launches = 0
+            out, bi, _ = batch_run(eng, rows, *args, progress=log_dir)
+            launches, st = pa.launches, eng.stats()
+        finally:
+            eng.shutdown()
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    resumed = well_formed("batch resume", out)
+    n_logged = BATCH_BLOCK * len(committed)
+    logged = [i for i in range(len(rows)) if i // BATCH_BLOCK in committed]
+    regen = [i for i in range(len(rows)) if i // BATCH_BLOCK not in committed]
+    if bi.stats["blocks_from_log"] != len(committed) \
+            or bi.stats["rows_resumed_from_log"] != n_logged \
+            or st["admitted"] != len(rows) - n_logged:
+        raise AssertionError(f"batch resume: {bi.stats}, {st['admitted']} "
+                             f"admitted for {len(rows) - n_logged} rows "
+                             f"outside the log")
+    if not all(np_equal(a["generated"], resumed[i])
+               for i, a in enumerate(first)):
+        raise AssertionError("batch resume: logged blocks differ from the "
+                             "rows the first run yielded")
+    # The first run's prefix cache may have served a shared prefix that
+    # these engines prefill whole: a first token may part at a near-tie.
+    parted = compare("batch resume (regenerated rows)",
+                     [resumed[i] for i in regen], [got[i] for i in regen],
+                     "bf16", what="resumed vs uninterrupted",
+                     model=(params, cfg, [reqs[i] for i in regen]),
+                     firsts_equal=False,
+                     sampling=(BATCH_TEMP, [sampling[1][i] for i in regen]))
+    log(f"batch resume [{card}]: blocks {sorted(committed)} committed when "
+        f"the consumer left after 2; the resumed run served them from the "
+        f"log ({len(logged)} rows, 0 admitted for them; {st['admitted']} "
+        f"admitted for the other {len(regen)}), no row lost or repeated; "
+        f"{parted} of {len(regen)} regenerated streams parted from the "
+        f"uninterrupted run (at bf16 near-ties); K1 launches {launches}")
+
+    # A driver death mid-run costs one replay.
+    eng = engine("cuda")
+    try:
+        eng.inject_fault("driver_die", at_tokens=200)
+        out, bi, _ = batch_run(eng, rows, *args)
+        st = eng.stats()
+    finally:
+        eng.shutdown()
+    died = well_formed("batch driver_die", out)
+    if st["driver_restarts"] != 1 or bi.stats["retries"] < 1:
+        raise AssertionError(f"batch driver_die: restarts "
+                             f"{st['driver_restarts']}, retries "
+                             f"{bi.stats['retries']}")
+    parted = compare("batch driver_die", died, got, "bf16",
+                     what="with a driver death vs undisturbed",
+                     model=model, firsts_equal=False, sampling=sampling)
+    log(f"batch driver_die [{card}]: one restart, {bi.stats['retries']} "
+        f"retries, {bi.stats['stream_resumes']} stream resumes; "
+        f"{parted} of {len(rows)} streams parted from the undisturbed run "
+        f"(at bf16 near-ties); phase {time.perf_counter() - t_phase:.1f} s")
 
 
 # ------------------------------------------------------------------- MoE
@@ -4057,6 +4373,7 @@ def main() -> int:
     handoff_phase(params, cfg, reqs, toks, (p50(ttft), p50(tpot)), reqs32,
                   toks8, nano_args, card)
     lifecycle_phase(params, cfg, reqs, toks, card)
+    batch_infer_phase(params, cfg, card)
 
     # ---- 6c. tensor-parallel decode: two ranks on this card
     records += tp_phase(params, cfg, reqs, toks, reqs32, toks8,

@@ -32,7 +32,10 @@ found under the same name:
   same decode functions on their shards (gloo, or NCCL across cards);
 - :mod:`ray_tpu_torch.serve.handoff` — handoff payloads, their SHA-256
   digest and leases (inline shipping only);
-- :mod:`ray_tpu_torch.serve.draft` — the n-gram and model drafters.
+- :mod:`ray_tpu_torch.serve.draft` — the n-gram and model drafters;
+- :mod:`ray_tpu_torch.data.llm` — offline batch inference over the
+  engine: ``BatchInferencer``, its saturation policy, the exactly-once
+  progress log and ``generate``.
 
 Not ported yet: the serve front (replicas, routing, tracing, metrics),
 training parallelism, and everything outside the GPT model's decode and

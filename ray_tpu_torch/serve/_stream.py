@@ -1,7 +1,8 @@
 """Stream lanes, prompt buckets and deadlines for the port's engine.
 
 The port's own copy of the pieces of ``ray_tpu/serve/batching.py``
-(``default_buckets``, ``_STREAM_END``, ``_StreamLane``, ``_EngineStream``)
+(``default_buckets``, ``_STREAM_END``, ``_StreamLane``, ``_EngineStream``
+with its ``poll``)
 and ``ray_tpu/serve/request.py`` (``deadline_expired``, ``remaining_s``,
 ``RequestDeadlineExceeded``) that the decode engine uses, trimmed to
 that use: the port imports nothing of the JAX package.
@@ -83,6 +84,22 @@ class _EngineStream:
 
     def __next__(self):
         return next(self._it)
+
+    def poll(self):
+        """Non-blocking pull of one event: ``("item", chunk)``,
+        ``("end", None)``, or None when nothing is queued; a failed lane
+        raises its error. For a consumer that drains many streams from
+        one thread (``ray_tpu_torch/data/llm.py``). Do not mix with
+        iteration on the same stream."""
+        try:
+            kind, val = self._lane.q.get_nowait()
+        except queue.Empty:
+            return None
+        if kind is _STREAM_END:
+            return ("end", None)
+        if kind == "err":
+            raise val
+        return ("item", val)
 
     def close(self):
         self._lane.closed = True

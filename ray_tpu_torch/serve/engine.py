@@ -339,7 +339,9 @@ class DecodeEngine:
     - ``wedge_timeout_s`` is the heartbeat age at which
       :meth:`supervise` calls a live driver wedged;
       ``max_driver_restarts`` how many restarts it makes before it
-      reports the engine unhealthy."""
+      reports the engine unhealthy.
+    - ``deployment`` labels the engine (``stats()["deployment"]`` and
+      the driver thread's name); empty means ``"engine"``."""
 
     def __init__(self, params, cfg, *, slots: int = 4, chunk: int = 8,
                  max_len: int = 0, temperature: float = 0.0,
@@ -353,8 +355,10 @@ class DecodeEngine:
                  handoff_ttl_s: float = 30.0,
                  wedge_timeout_s: float = 30.0,
                  max_driver_restarts: int = 1, tp: int = 1,
-                 device: DeviceLike = None, auto_start: bool = True):
+                 device: DeviceLike = None, deployment: str = "",
+                 auto_start: bool = True):
         self.cfg = cfg
+        self.deployment = deployment or "engine"
         self.slots = int(slots)
         self.chunk = int(chunk)
         self.max_len = int(max_len or cfg.max_seq)
@@ -1008,7 +1012,7 @@ class DecodeEngine:
         self._beat = time.monotonic()
         self._thread = threading.Thread(
             target=self._run, args=(self._stop, self._epoch), daemon=True,
-            name="rt-torch-decode-engine")
+            name=f"rt-torch-decode-engine-{self.deployment}")
         self._thread.start()
 
     def shutdown(self, timeout_s: float = 5.0):
@@ -1179,6 +1183,7 @@ class DecodeEngine:
                 accepted_per_forward=(sp["accepted"] + sp["lanes"])
                 / max(sp["lanes"], 1))
         out["role"] = self.role
+        out["deployment"] = self.deployment
         ls = self._leases.stats()
         out["handoff"] = {
             "exported": out.pop("handoffs_exported"),

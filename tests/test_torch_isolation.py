@@ -7,8 +7,9 @@ PRNG and the drafters, which reimplement JAX's and copy the reference's,
 included) and of ``chip_smoke.py``, and by serving nano requests
 (greedy, seeded temperature > 0, and speculative with the n-gram
 drafter), handing one request off from a prefill engine to a decode
-engine, taking a nano train step (flash attention, ``dots`` remat), and
-serving one request and taking one train step with a nano
+engine, running batch inference with a progress log and resuming it
+once from the log, taking a nano train step (flash attention, ``dots``
+remat), and serving one request and taking one train step with a nano
 Mixture-of-Experts model, one ResNet-18 forward at inference (through
 the predictor's ``uint8_input`` path) and one in training, serving
 one request on a tp=2 engine, one local PPO iteration on a numpy
@@ -65,7 +66,8 @@ def test_no_jax_or_reference_imports_in_source():
                  "rllib/sac.py", "rllib/offline_data.py", "rllib/cql.py",
                  "rllib/bc.py", "rllib/marwil.py", "rllib/_threads.py",
                  "rllib/multi_agent.py", "rllib/dreamerv3.py",
-                 "rllib/impala.py", "rllib/appo.py"):
+                 "rllib/impala.py", "rllib/appo.py", "data/__init__.py",
+                 "data/block.py", "data/llm.py"):
         assert os.path.join(PKG, must) in files, must
     files.append(os.path.join(ROOT, "chip_smoke.py"))
     bad = []
@@ -173,6 +175,41 @@ finally:
     dec.shutdown()
 assert out.shape == (6,) and ho["imported"] == 1, (out, ho)
 assert ho["import_fallbacks"] == 0, ho
+# Batch inference with a progress log: a run left after its first block,
+# then resumed once from the log.
+import shutil
+import tempfile
+
+from ray_tpu_torch import data as tdata
+
+log_dir = tempfile.mkdtemp()
+rows = [{"rid": i, "prompt": np.arange(3 + i, dtype=np.int32)}
+        for i in range(5)]
+blocks = [tdata.block.rows_to_block(rows[i:i + 2]) for i in (0, 2, 4)]
+runs = []
+try:
+    for stop_after in (1, None):
+        eng = DecodeEngine(params, cfg, slots=2, chunk=4, max_len=64,
+                           prompt_buckets=(8, 16), page_size=8,
+                           temperature=0.8, device="cpu")
+        try:
+            bi = tdata.BatchInferencer(eng, max_new=5, seed=3,
+                                       progress_path=log_dir)
+            gen = bi.run(blocks)
+            got = [r for _, b in zip(range(stop_after or 3), gen)
+                   for r in tdata.block.iter_rows(b)]
+            gen.close()
+            runs.append((got, dict(bi.stats), eng.stats()["admitted"]))
+        finally:
+            eng.shutdown()
+finally:
+    shutil.rmtree(log_dir, ignore_errors=True)
+(first, _, _), (resumed, stats, admitted) = runs
+assert [r["rid"] for r in resumed] == list(range(5)), resumed
+assert stats["blocks_from_log"] >= 1 and admitted == 5 - stats[
+    "rows_resumed_from_log"], (stats, admitted)
+assert all(np.array_equal(a["generated"], b["generated"])
+           and a["generated"].shape == (5,) for a, b in zip(first, resumed))
 tcfg = dataclasses.replace(cfg, attn_backend="flash", remat="dots")
 init, step, _, _ = gpt.make_train_step(tcfg, device="cpu")
 state, metrics = step(init(seed=0), {"tokens": np.arange(
