@@ -84,13 +84,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
    blocks admitted nothing, no row lost or repeated, the rest held to
    the uninterrupted run); a ``driver_die`` mid-run that costs one
    replay;
+   then the observability plane (``observability_phase``): the port's
+   flight recorder on a temporary directory through the 12-request K1
+   serve (no torn record; ``engine.admit`` events equal the admissions,
+   ``engine.dispatch`` events written plus dropped equal the dispatches;
+   the port's ``serve_metrics()`` deltas of dispatches, kernel
+   dispatches and tokens equal ``stats()``, the pages-free gauge the
+   pool's, the dropped-events counter the recorder's drops; K1 launched
+   ``n_layer * chunk`` times a dispatch), then the same serve with the
+   recorder off and on, three pairs, tok/s of each;
    then tensor-parallel decode: ``DecodeEngine(tp=2)`` on a gloo group
    of two ranks on this card (this process and a follower process),
    K1 over each rank's 6 heads held against its plain version (bf16
    and int8 pools) and launched ``n_layer * chunk`` times a dispatch on
    both ranks, 24 all-reduces a decode step, the 12 requests against
    the tp=1 K1 engines (bf16 near-ties, int8 and f32 budgets; first
-   tokens may part at a near-tie too), a tp=2 → tp=1 f32 handoff whose
+   tokens may part at a near-tie too; the bf16 run with the recorder on
+   in this process, rank 0, whose ``shard.dispatch`` events written plus
+   dropped equal its ``engine.dispatch`` events), a tp=2 → tp=1 f32
+   handoff whose
    every stream equals the colocated tp=1 engine's, TTFT/TPOT and one
    all-reduce's host ms (two
    ranks on one card: no figure for tensor parallelism across cards);
@@ -3589,6 +3601,143 @@ def batch_infer_phase(params, cfg, card) -> None:
         f"(at bf16 near-ties); phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# ----------------------------------------------------------- observability
+OBS_PAIRS = 3                      # recorder off/on serve pairs
+
+
+def ring_counts(rec, ring) -> dict:
+    """{kind: events written to the ring plus events its rate caps
+    dropped} for a ring that did not wrap and holds no torn record."""
+    if ring["torn"] or rec.emitted > rec.n_slots:
+        raise AssertionError(f"events ring: {ring['torn']} torn records, "
+                             f"{rec.emitted} emitted into {rec.n_slots} "
+                             f"slots")
+    counts = dict(rec.dropped)
+    for e in ring["events"]:
+        counts[e["kind"]] = counts.get(e["kind"], 0) + 1
+    return counts
+
+
+def metric_value(inst, dep: str):
+    """A serve instrument's value under ``deployment=dep`` (0 if none)."""
+    return dict(inst.collect()).get((("deployment", dep),), 0)
+
+
+def observability_phase(params, cfg, reqs, card) -> None:
+    """The engine's observability plane on the card: (a) the port's
+    flight recorder (``ray_tpu_torch._private.events``) on a fresh
+    temporary directory through the 12-request GPT-2-small bf16 serve
+    over K1, read back with ``read_ring`` and held to the engine's
+    ``stats()``, and the port's ``serve_metrics()`` deltas held to the
+    same counts; (b) the same serve with the recorder off and on,
+    alternating, ``OBS_PAIRS`` pairs on fresh engines, tok/s of each
+    logged (no bound: the host's speed moves between calls), and no
+    ``Recorder`` built while it is off. Events and metrics are host
+    numbers the driver already has: recording them adds no device
+    sync."""
+    import os
+    import tempfile
+
+    import torch
+
+    from ray_tpu_torch._private import events as ev
+    from ray_tpu_torch._private.metrics import serve_metrics
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    sm = serve_metrics()
+    dropped = sm["events_dropped"]
+
+    def dropped_total():
+        return sum(v for _, v in dropped.collect())
+
+    with tempfile.TemporaryDirectory(prefix="rt-events-") as evdir:
+        # (a) the recorder through the serve run.
+        ev._reset_for_tests()
+        rec = ev.init(os.path.join(evdir, "a"), proc="chip_smoke")
+        if rec is None:
+            raise AssertionError("the flight recorder did not start")
+        dep = "obs-a"
+        d0 = dropped_total()
+        pa.launches = 0
+        toks, _, _, wall, st = serve(params, cfg, reqs, device=dev,
+                                     attn_kernel="cuda", deployment=dep)
+        launches = pa.launches
+        ring = ev.read_ring(rec.path)
+        counts = ring_counts(rec, ring)
+        rst = rec.stats()
+        ev._reset_for_tests()
+        check_streams("observability", toks, reqs, cfg.vocab_size)
+        log("observability: ring kinds (written + dropped) " + ", ".join(
+            f"{k} {n}" for k, n in sorted(counts.items())) +
+            f"; dropped {rst['dropped']}, ring fill {rst['ring_fill']}")
+        want = {"engine.admit": st["admitted"],
+                "engine.dispatch": st["dispatches"]}
+        got = {k: counts.get(k, 0) for k in want}
+        metrics = {
+            "engine_dispatches": metric_value(sm["engine_dispatches"], dep),
+            "engine_attn_kernel_dispatches": metric_value(
+                sm["engine_attn_kernel_dispatches"], dep),
+            "engine_tokens": metric_value(sm["engine_tokens"], dep),
+            "engine_pages_free": metric_value(sm["engine_pages_free"], dep),
+            "events_dropped": dropped_total() - d0}
+        want_metrics = {
+            "engine_dispatches": st["dispatches"],
+            "engine_attn_kernel_dispatches": st["dispatches"],
+            "engine_tokens": st["tokens"],
+            "engine_pages_free": st["pages_free"],
+            "events_dropped": rst["dropped_total"]}
+        want_launches = cfg.n_layer * 8 * st["dispatches"]
+        log(f"observability: events {got} (stats {want}); metrics "
+            f"{metrics} (stats {want_metrics}); attn_kernel_dispatches "
+            f"{st['attn_kernel_dispatches']}; K1 launches {launches} (want "
+            f"n_layer*chunk*dispatches={want_launches})")
+        if got != want or metrics != want_metrics or launches != \
+                want_launches or st["attn_kernel_dispatches"] != \
+                st["dispatches"]:
+            raise AssertionError("observability: the recorder or the "
+                                 "metrics disagree with stats()")
+
+        # (b) what the recorder costs: off, on, alternating.
+        built = [0]
+        plain_recorder = ev.Recorder
+
+        class CountedRecorder(plain_recorder):
+            def __init__(self, *a, **kw):
+                built[0] += 1
+                super().__init__(*a, **kw)
+
+        ev.Recorder = CountedRecorder
+        rates = {"off": [], "on": []}
+        try:
+            for i in range(OBS_PAIRS):
+                for mode in ("off", "on"):
+                    ev._reset_for_tests()
+                    if mode == "on":
+                        ev.init(os.path.join(evdir, f"b{i}"),
+                                proc="chip_smoke")
+                    n_built = built[0]
+                    toks, _, _, wall, _ = serve(
+                        params, cfg, reqs, device=dev, attn_kernel="cuda",
+                        deployment=f"obs-{mode}-{i}")
+                    if mode == "off" and (built[0] != n_built
+                                          or ev.recorder() is not None):
+                        raise AssertionError("a Recorder was built with "
+                                             "the recorder off")
+                    rates[mode].append(sum(map(len, toks)) / wall)
+        finally:
+            ev.Recorder = plain_recorder
+            ev._reset_for_tests()
+    off, on = p50(rates["off"]), p50(rates["on"])
+    log(f"observability cost [{card}]: recorder off "
+        f"{[round(r, 2) for r in rates['off']]} tok/s, on "
+        f"{[round(r, 2) for r in rates['on']]} tok/s; p50 off {off:.2f}, "
+        f"on {on:.2f}, on/off {on / off:.4f} (alternating pairs, fresh "
+        f"engines; {built[0]} recorders built, all with it on); phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 # ------------------------------------------------------------------- MoE
 #: The MoE model on the card: the repo's GPT-2 small with 8 experts and
 #: the reference's own MoE defaults (top-2, capacity factor 1.25, aux
@@ -4085,8 +4234,12 @@ def tp_phase(params, cfg, reqs, greedy, reqs32, greedy8, f32_args,
     host ms are printed: two processes sharing ONE card, every
     collective staged through host memory by gloo, not a figure for
     tensor parallelism across cards. Returns K1's two H=6 records."""
+    import shutil
+    import tempfile
+
     import torch
 
+    from ray_tpu_torch._private import events as ev
     from ray_tpu_torch._private import tp
     from ray_tpu_torch.ops import paged_attention as pa
 
@@ -4117,6 +4270,11 @@ def tp_phase(params, cfg, reqs, greedy, reqs32, greedy8, f32_args,
             return plain_all_reduce(t)
 
         group.all_reduce = all_reduce
+        # The flight recorder on in this process, rank 0: every
+        # engine.dispatch has its shard.dispatch.
+        ev._reset_for_tests()
+        evdir = tempfile.mkdtemp(prefix="rt-events-tp-")
+        rec = ev.init(evdir, proc="chip_smoke_tp")
         try:
             pa.launches = 0
             group.probe(reset=True)
@@ -4124,8 +4282,19 @@ def tp_phase(params, cfg, reqs, greedy, reqs32, greedy8, f32_args,
                 params, cfg, reqs, device=dev, attn_kernel="cuda", tp=TP)
             launches = [pa.launches, group.probe()[0]["k1_launches"]]
             n_ar = counted[0]
+            counts = ring_counts(rec, ev.read_ring(rec.path))
         finally:
             del group.all_reduce
+            ev._reset_for_tests()
+            shutil.rmtree(evdir, ignore_errors=True)
+        pair = [counts.get("engine.dispatch", 0),
+                counts.get("shard.dispatch", 0)]
+        log(f"tp2 bf16 recorder on rank 0: engine.dispatch / shard.dispatch "
+            f"written + dropped {pair} (dispatches {stats['dispatches']})")
+        if pair != [stats["dispatches"]] * 2:
+            raise AssertionError(f"tp2: engine/shard dispatch events "
+                                 f"{pair}, dispatches "
+                                 f"{stats['dispatches']}")
         check_streams("tp2 bf16", toks, reqs, cfg.vocab_size)
         steps = 8 * stats["dispatches"]
         want = cfg.n_layer * steps
@@ -4374,6 +4543,7 @@ def main() -> int:
                   toks8, nano_args, card)
     lifecycle_phase(params, cfg, reqs, toks, card)
     batch_infer_phase(params, cfg, card)
+    observability_phase(params, cfg, reqs, card)
 
     # ---- 6c. tensor-parallel decode: two ranks on this card
     records += tp_phase(params, cfg, reqs, toks, reqs32, toks8,

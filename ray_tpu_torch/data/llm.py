@@ -24,6 +24,8 @@ overnight at full slot occupancy").
   seed), so the resumed output is token-identical to an uninterrupted
   run at temperature 0 and seeded above it. The log's layout is the
   reference's: a block committed by either package loads in the other.
+  Each committed block is also a ``data.block_commit`` event in the
+  flight recorder (:mod:`~ray_tpu_torch._private.events`).
 - **Faults in-run**: a retryable engine failure mid-stream (a driver
   death, a drain) resubmits the row with ``resume_from=<delivered>``
   after giving each engine's supervisor its chance to restart a dead
@@ -50,6 +52,7 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
+from .._private.events import driver_emit as _driver_emit
 from . import block as B
 
 
@@ -497,6 +500,9 @@ class BatchInferencer:
                 skeletons.append(sk)
             self._log.commit(idx, skeletons, list(bs.outs))
         self.stats["blocks"] += 1
+        _driver_emit("data.block_commit", block=idx, rows=len(out_rows),
+                     tokens=sum(int(t.shape[0]) for t in bs.outs),
+                     journaled=self._log is not None)
         return B.rows_to_block(out_rows)
 
     # -------------------------------------------------------------- driving

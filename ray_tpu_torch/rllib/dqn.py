@@ -145,6 +145,9 @@ class DQNLearner:
         self.target_params = params_to_torch(state["target"], self.device)
         self.opt_state = params_to_torch(state["opt_state"], self.device)
 
+    def update_full(self, batch, **kw):
+        return self.update(batch)
+
 
 class DQNConfig(AlgorithmConfig):
     def __init__(self):

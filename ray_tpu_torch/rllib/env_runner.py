@@ -165,6 +165,9 @@ class SingleAgentEnvRunner:
             _shape=np.array([T, N]),
         )
 
+    def sample_with_len(self):
+        return self.sample()
+
     def get_metrics(self) -> Dict[str, Any]:
         recent = self.completed_returns[-100:]
         out = {

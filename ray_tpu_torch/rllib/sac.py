@@ -293,6 +293,9 @@ class SACLearner:
         self.target_q = params_to_torch(state["target_q"], self.device)
         self.opt_state = params_to_torch(state["opt_state"], self.device)
 
+    def update_full(self, batch, **kw):
+        return self.update(batch)
+
 
 class SACConfig(AlgorithmConfig):
     def __init__(self):

@@ -74,8 +74,18 @@ reference engine's stream for the same seed (f32 compute; asserted in
 ``tests/test_torch_engine.py``, ``tests/test_torch_engine_spec.py``,
 ``tests/test_torch_handoff.py``,
 ``tests/test_torch_engine_lifecycle.py`` and, at ``tp`` 2 and 4,
-``tests/test_torch_engine_tp.py``). Left for a later slice: the serve
-front (tracing, flight-recorder events and metrics).
+``tests/test_torch_engine_tp.py``).
+
+- **Observability**: the engine writes the reference's flight-recorder
+  events (:mod:`~ray_tpu_torch._private.events`; ``engine.admit``,
+  ``engine.dispatch``, ``engine.page_alloc`` and the rest, each stamped
+  with the request id from :func:`~ray_tpu_torch.serve.request.get_request_id`
+  or a local ``eng-<pid hex>-<n>``) and counts the reference's serve
+  instruments (:func:`~ray_tpu_torch._private.metrics.serve_metrics`),
+  labelled with its ``deployment``, at the reference's sites and with
+  its attributes. Every value is a host number the driver already holds:
+  nothing synchronises the device to record it. Trace spans are left
+  for a later slice (``trace_ctx`` is accepted and ignored).
 """
 from __future__ import annotations
 
@@ -91,8 +101,11 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .._private import events as _events
 from .._private import prng
 from .._private import tp as _tp
+from .._private.events import driver_emit as _driver_emit
+from .._private.metrics import serve_metrics
 from .._private.device import (DeviceLike, resolve_device,
                                set_matmul_precision)
 from ..models import gpt_decode
@@ -101,6 +114,7 @@ from .draft import make_drafter
 from ._stream import (_STREAM_END, RequestDeadlineExceeded, _EngineStream,
                       _StreamLane, deadline_expired, default_buckets,
                       remaining_s)
+from .request import get_request_id
 
 ROLES = ("both", "prefill", "decode")
 
@@ -134,6 +148,12 @@ class _EngineRequest:
     handoff: Optional[dict] = None
     #: Export-side lease TTL override (0 = the engine's default).
     ttl_s: float = 0.0
+    #: Enqueue stamp (``time.time()``), reset when a preemption requeues
+    #: the request: the start of its admission wait.
+    enq_t: float = field(default_factory=time.time)
+    #: Flight-recorder correlation id, stamped on every event of this
+    #: request (:meth:`DecodeEngine._new_req_id`).
+    req_id: str = ""
 
 
 @dataclass
@@ -460,7 +480,8 @@ class DecodeEngine:
                        "spec_lanes": 0, "handoffs_exported": 0,
                        "handoffs_imported": 0,
                        "handoff_import_fallbacks": 0,
-                       "handoff_ship_bytes": 0}
+                       "handoff_ship_bytes": 0,
+                       "attn_kernel_dispatches": 0}
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         # Driver supervision: the driver stamps _beat every loop;
@@ -476,6 +497,8 @@ class DecodeEngine:
         #: Chaos fault armed by inject_fault() (testing only).
         self._fault: Optional[dict] = None
         self._throttle_s = 0.0
+        # Local flight-recorder ids for submissions that carry none.
+        self._req_uid = 0
         if auto_start:
             self.start()
 
@@ -804,6 +827,17 @@ class DecodeEngine:
                 f"length {self.max_len}")
         return prompt, bucket
 
+    def _new_req_id(self) -> str:
+        """Flight-recorder id of a new admission (``engine.py:947``): the
+        request context's id when a serving layer set one, else a local
+        ``eng-<pid hex>-<n>`` from this engine's counter."""
+        rid = get_request_id()
+        if rid:
+            return rid
+        with self._admit_lock:
+            self._req_uid += 1
+            return f"eng-{os.getpid():x}-{self._req_uid}"
+
     def _enqueue(self, req: _EngineRequest):
         with self._admit_lock:
             if self._draining:
@@ -842,11 +876,15 @@ class DecodeEngine:
         if max_new <= 0:
             lane.q.put((_STREAM_END, None))
             return lane
+        req_id = self._new_req_id()
         self._enqueue(_EngineRequest(
             prompt=prompt, bucket=bucket, max_new=int(max_new), lane=lane,
-            deadline_s=deadline_s, seed=int(seed), skip=resume_from))
+            deadline_s=deadline_s, seed=int(seed), skip=resume_from,
+            req_id=req_id))
         if resume_from:
             self._count(resumed=1)
+            _events.emit("engine.resume", request=req_id,
+                         resume_from=resume_from, epoch=self._epoch)
         return lane
 
     def stream(self, prompt, max_new: int, **kw) -> _EngineStream:
@@ -883,7 +921,7 @@ class DecodeEngine:
         self._enqueue(_EngineRequest(
             prompt=prompt, bucket=bucket, max_new=int(max_new), lane=lane,
             deadline_s=deadline_s, seed=int(seed), export=True,
-            ttl_s=float(ttl_s or 0.0)))
+            ttl_s=float(ttl_s or 0.0), req_id=self._new_req_id()))
         rem = remaining_s(deadline_s)
         try:
             kind, val = lane.q.get(timeout=rem if rem is not None
@@ -904,7 +942,10 @@ class DecodeEngine:
         """Decode-side acknowledgement that a shipped payload was
         imported: releases the lease before its expiry
         (``engine.py:1081``). Unknown or stale leases return False."""
-        return self._leases.claim(lease_id, int(epoch))
+        ok = self._leases.claim(lease_id, int(epoch))
+        _events.emit("handoff.claim", lease=lease_id, epoch=int(epoch),
+                     released=ok)
+        return ok
 
     def admit_prefilled(self, desc: dict, *,
                         deadline_s: Optional[float] = None,
@@ -932,6 +973,8 @@ class DecodeEngine:
             payload = self._check_payload(desc, max_new)
         except _ho.HandoffError:
             self._count(handoff_import_fallbacks=1)
+            serve_metrics()["prefill_fallbacks"].inc(
+                labels={"deployment": self.deployment, "where": "engine"})
             return self.submit(prompt, max_new, seed=seed,
                                deadline_s=deadline_s,
                                resume_from=resume_from)
@@ -947,7 +990,9 @@ class DecodeEngine:
         self._enqueue(_EngineRequest(
             prompt=prompt, bucket=bucket, max_new=max_new, lane=lane,
             deadline_s=deadline_s, seed=seed, skip=resume_from,
-            handoff={"payload": payload}))
+            handoff={"payload": payload,
+                     "created_t": desc.get("created_t")},
+            req_id=self._new_req_id()))
         if resume_from:
             self._count(resumed=1)
         return lane
@@ -1104,6 +1149,10 @@ class DecodeEngine:
                 self._pending = collections.deque()
                 self._queue = queue.SimpleQueue()
         self._count(driver_restarts=1)
+        serve_metrics()["engine_driver_restarts"].inc(
+            labels={"deployment": self.deployment})
+        _events.emit("engine.driver_restart", epoch=self._epoch,
+                     deployment=self.deployment, reason=reason)
         self._thread = None
         self.start()
 
@@ -1150,25 +1199,20 @@ class DecodeEngine:
                 f"injected engine driver death at {toks} tokens")
 
     def stats(self) -> dict:
+        """The reference's ``stats()`` keys (``engine.py:1412``) but its
+        ``sanitizer`` block; paged-pool keys only on a paged engine."""
         with self._stats_lock:
             out = dict(self._stats)
         out["active_slots"] = sum(s is not None for s in self._state)
         out["slots"] = self.slots
-        out["queue_depth"] = self.queue_depth()
+        out["queue_depth"] = out["queued"] = self.queue_depth()
         d = max(out["dispatches"], 1)
         out["avg_occupancy"] = out.pop("occupancy_sum") / d
         out["dispatches_per_token"] = (
             (out["dispatches"] + out["prefills"]) / max(out["tokens"], 1))
-        out["page_size"] = self.page_size
-        out["n_pages"] = self.n_pages
-        if self.paged:
-            out["pages_free"] = self._pool.available()
-            out["pages_used"] = self.n_pages - self._pool.available()
-            out["parked_slots"] = sum(
-                s is not None and s.parked for s in self._state)
-        if self._prefix is not None:
-            out["prefix_cache_entries"] = len(self._prefix)
-            out["prefix_evictions"] = self._prefix.evictions
+        out["paged"] = self.paged
+        out["deployment"] = self.deployment
+        out["tp"] = self.tp
         sp = {k: out.pop("spec_" + k) for k in
               ("rounds", "proposed", "accepted", "fallback_rounds",
                "lanes")}
@@ -1183,7 +1227,6 @@ class DecodeEngine:
                 accepted_per_forward=(sp["accepted"] + sp["lanes"])
                 / max(sp["lanes"], 1))
         out["role"] = self.role
-        out["deployment"] = self.deployment
         ls = self._leases.stats()
         out["handoff"] = {
             "exported": out.pop("handoffs_exported"),
@@ -1194,18 +1237,36 @@ class DecodeEngine:
             "leases_claimed": ls["claimed"],
             "leases_reclaimed": ls["reclaimed"],
         }
-        out["paged"] = self.paged
-        out["tp"] = self.tp
-        out["attn_kernel"] = self.attn_kernel
-        out["kv_dtype"] = self.kv_dtype
-        ps = self.page_size or 1
-        out["kv_bytes_per_token"] = gpt_decode.kv_bytes_per_page(
-            self.cfg, ps, self.kv_dtype) / ps
         t = self._thread
         out["driver_alive"] = bool(t is not None and t.is_alive())
         out["heartbeat_age_s"] = round(time.monotonic() - self._beat, 3)
         out["draining"] = self._draining
+        # This process's flight-recorder health: ring fill and per-kind
+        # rate-cap drops.
+        out["events"] = _events.stats()
+        if self.paged:
+            out["page_size"] = self.page_size
+            out["n_pages"] = self.n_pages
+            out["pages_free"] = self._pool.available()
+            out["pages_used"] = self.n_pages - self._pool.available()
+            out["parked_slots"] = sum(
+                s is not None and s.parked for s in self._state)
+            if self._prefix is not None:
+                out["prefix_cache_entries"] = len(self._prefix)
+                out["prefix_evictions"] = self._prefix.evictions
+            out["attn_kernel"] = self.attn_kernel
+            out["kv_dtype"] = self.kv_dtype
+            out["kv_bytes_per_token"] = self._kv_bytes_per_token()
+        else:
+            for k in ("prefix_hits", "prefix_tokens_reused",
+                      "cow_copies", "admissions_deferred", "lane_parks",
+                      "preempted", "attn_kernel_dispatches"):
+                out.pop(k, None)
         return out
+
+    def _kv_bytes_per_token(self) -> float:
+        return gpt_decode.kv_bytes_per_page(
+            self.cfg, self.page_size, self.kv_dtype) / self.page_size
 
     def _count(self, **deltas):
         with self._stats_lock:
@@ -1228,8 +1289,8 @@ class DecodeEngine:
                 if stop.is_set():
                     break            # woke from a wedge past a restart
                 self._admit_pending(epoch)
-                if len(self._leases):
-                    self._leases.sweep()
+                self._observe_queue_depth()
+                self._sweep_leases()
                 if not any(s is not None for s in self._state):
                     if self._pending:
                         # A deferred head with no running lane cannot
@@ -1323,7 +1384,50 @@ class DecodeEngine:
         while pool.available() < n:
             if prefix is None or not prefix.evict_lru():
                 return None
-        return pool.alloc(n)
+            _driver_emit("engine.page_evict", epoch=self._epoch,
+                         wanted=n, free=pool.available())
+        pages = pool.alloc(n)
+        if pages is not None:
+            _driver_emit("engine.page_alloc", epoch=self._epoch, n=n,
+                         free=pool.available())
+        return pages
+
+    def _observe_pages(self, sm=None):
+        """The page gauges (``engine.py:1641``), from the host's
+        allocator."""
+        if not self.paged:
+            return
+        sm = sm or serve_metrics()
+        free = self._pool.available()
+        labels = {"deployment": self.deployment}
+        sm["engine_pages_free"].set(free, labels=labels)
+        sm["engine_pages_used"].set(self.n_pages - free, labels=labels)
+        sm["engine_kv_bytes_per_token"].set(self._kv_bytes_per_token(),
+                                            labels=labels)
+
+    def _sweep_leases(self):
+        """Reclaim expired handoff leases, once per driver loop
+        (``engine.py:1656``)."""
+        if not len(self._leases):
+            return
+        n = self._leases.sweep()
+        if n:
+            serve_metrics()["handoff_leases_reclaimed"].inc(
+                n, labels={"deployment": self.deployment})
+            _driver_emit("handoff.reclaim", count=n, epoch=self._epoch,
+                         outstanding=len(self._leases))
+
+    def _observe_queue_depth(self):
+        """The admission backlog gauge, once per driver loop
+        (``engine.py:1673``)."""
+        serve_metrics()["engine_queue_depth"].set(
+            self.queue_depth(), labels={"deployment": self.deployment})
+
+    def _expired(self, sm=None):
+        """Count one request that the engine failed at its deadline."""
+        self._count(expired=1)
+        (sm or serve_metrics())["requests_expired"].inc(
+            labels={"where": "engine", "deployment": self.deployment})
 
     def _admit_pending(self, epoch: int = -1):
         """Chunk-boundary admission: fill every free slot in FIFO order.
@@ -1349,7 +1453,7 @@ class DecodeEngine:
                 self._count(abandoned=1)
                 continue
             if deadline_expired(req.deadline_s):
-                self._count(expired=1)
+                self._expired()
                 req.lane.q.put(("err", RequestDeadlineExceeded(
                     "request expired while queued for engine admission")))
                 continue
@@ -1374,16 +1478,18 @@ class DecodeEngine:
         pages). A handoff export leaves through :meth:`_finish_export`,
         everything else through :meth:`_enter_steady_state`."""
         slot = next(i for i, s in enumerate(self._state) if s is None)
+        sm = serve_metrics()
         if req.handoff is not None:
-            return self._admit_import(req, slot, epoch)
+            return self._admit_import(req, slot, sm, epoch)
         P = req.prompt.shape[0]
         key = prng.PRNGKey(req.seed)
         if self.paged:
-            admitted = self._prefill_paged(req, slot, P, key, epoch)
+            admitted = self._prefill_paged(req, slot, P, key, sm, epoch)
             if admitted is None:
                 return False
-            first, pages = admitted
+            first, pages, t_admit = admitted
         else:
+            t_admit = time.time()
             padded = np.zeros((1, req.bucket), np.int32)
             padded[0, :P] = req.prompt
             first, rng = self._fn("prefill_into_slot")(
@@ -1393,26 +1499,34 @@ class DecodeEngine:
                 return True          # stale driver: drop on the floor
             self._rngs[slot] = rng
             pages = []
+        sm["engine_admission_wait"].observe(
+            max(t_admit - req.enq_t, 0.0),
+            labels={"deployment": self.deployment})
         self._count(prefills=1, admitted=1 if (req.skip == 0
                                               and not req.export) else 0)
         self._token[slot] = first
         if req.export:
-            return self._finish_export(req, slot, P, pages, first)
-        return self._enter_steady_state(req, slot, first, P, pages)
+            return self._finish_export(req, slot, P, pages, first, sm)
+        return self._enter_steady_state(req, slot, first, P, pages, sm)
 
     def _enter_steady_state(self, req: _EngineRequest, slot: int,
-                            first: int, P: int, pages: List[int]) -> bool:
+                            first: int, P: int, pages: List[int],
+                            sm) -> bool:
         """The admission tail shared by a local prefill and a handoff
         import (``engine.py:1800``): deliver the first token (or
         suppress it on a replay), close out a one-token or EOS request,
         else install the slot's state and seed the drafter. Both paths
         keep the same ``emitted``/``skip`` bookkeeping, so a resumed
         stream is the same whichever way it was admitted."""
+        _driver_emit("engine.admit", request=req.req_id, slot=slot,
+                     epoch=self._epoch, prompt_len=P, max_new=req.max_new,
+                     resume_from=req.skip)
         skip = req.skip
         if skip > 0:
             skip -= 1            # replay: the first token was delivered
         else:
             self._count(tokens=1)
+            sm["engine_tokens"].inc(labels={"deployment": self.deployment})
             req.lane.q.put(("item", np.asarray([first], np.int32)))
         if req.max_new <= 1 or (self.eos_token >= 0
                                 and first == self.eos_token):
@@ -1421,6 +1535,7 @@ class DecodeEngine:
             if pages:
                 self._pool.unref(pages)
                 self._pt[slot, :] = gpt_decode.PT_SENTINEL
+            self._observe_pages(sm)
             return True
         self._state[slot] = _Slot(
             lane=req.lane, remaining=req.max_new - 1,
@@ -1431,15 +1546,17 @@ class DecodeEngine:
             # Per-slot drafter state from the prompt and first token: a
             # replay rebuilds it bit-equal.
             self._drafter.admit(slot, req.prompt, first)
+        self._observe_pages(sm)
         return True
 
     def _prefill_paged(self, req: _EngineRequest, slot: int, P: int,
-                       key: np.ndarray, epoch: int = -1
-                       ) -> Optional[Tuple[int, List[int]]]:
+                       key: np.ndarray, sm, epoch: int = -1
+                       ) -> Optional[Tuple[int, List[int], float]]:
         """Map the cached prefix (refcounted, COW fork if it ends
         mid-page), allocate fresh pages for the suffix, prefill ONLY the
         suffix, then register the prompt's pages in the prefix cache.
-        Returns ``(first_token, pages)``, or None (nothing taken) when
+        Returns ``(first_token, pages, t_admit)``, ``t_admit`` the end of
+        the admission wait, or None (nothing taken) when
         pages are unavailable even after LRU eviction, or when a restart
         retired this driver during the prefill."""
         ps = self.page_size
@@ -1467,6 +1584,7 @@ class DecodeEngine:
                 pool.unref([cow_src])
             return None
         pages = shared + fresh
+        t_admit = time.time()
         sl = P - hist
         bucket = next(b for b in self.prompt_buckets if b >= sl)
         padded = np.zeros((1, bucket), np.int32)
@@ -1487,16 +1605,19 @@ class DecodeEngine:
             pool.unref(pages)        # hand back, on the same snapshot
             return None
         self._rngs[slot] = rng
+        labels = {"deployment": self.deployment}
         if partial:
             self._count(cow_copies=1)
+            sm["engine_cow_copies"].inc(labels=labels)
         if hist:
             self._count(prefix_hits=1, prefix_tokens_reused=hist)
+            sm["engine_prefix_hits"].inc(labels=labels)
         if prefix is not None:
             prefix.insert(req.prompt, pages)
-        return first, pages
+        return first, pages, t_admit
 
     def _finish_export(self, req: _EngineRequest, slot: int, P: int,
-                       pages: List[int], first: int) -> bool:
+                       pages: List[int], first: int, sm) -> bool:
         """Handoff export tail (``engine.py:1927``), right after the
         prefill: the slot's K/V trimmed to the prompt and gathered on the
         device, copied to the host, the slot's pages freed, a lease
@@ -1532,16 +1653,28 @@ class DecodeEngine:
             "expires_at": expires, "digest": payload["digest"],
             "prompt": req.prompt, "pos": P, "first": first,
             "seed": req.seed, "max_new": req.max_new,
-            "created_t": time.time(), "nbytes": nbytes})
+            "created_t": time.time(), "nbytes": nbytes,
+            # The reference's locality hint is the runtime's node id,
+            # None outside a runtime (``engine.py:187``); the port has
+            # no runtime.
+            "node_id": None, "deployment": self.deployment})
         # ``tokens`` counts the sampled first token, so a fault armed at
         # token N fires on a prefill engine too.
         self._count(handoffs_exported=1, handoff_ship_bytes=nbytes,
                     tokens=1)
+        _driver_emit("handoff.grant", request=req.req_id, lease=lease_id,
+                     epoch=self._epoch, nbytes=nbytes,
+                     ttl_s=req.ttl_s or self._leases.ttl_s)
+        _driver_emit("engine.export", request=req.req_id, slot=slot,
+                     epoch=self._epoch, prompt_len=P, nbytes=nbytes)
+        sm["kv_ship_bytes"].inc(nbytes,
+                                labels={"deployment": self.deployment})
         req.lane.q.put(("item", desc))
         req.lane.q.put((_STREAM_END, None))
+        self._observe_pages(sm)
         return True
 
-    def _admit_import(self, req: _EngineRequest, slot: int,
+    def _admit_import(self, req: _EngineRequest, slot: int, sm,
                       epoch: int = -1) -> bool:
         """Handoff import admission (``engine.py:2006``): scatter the
         verified payload into a free slot (flat) or freshly allocated
@@ -1550,6 +1683,7 @@ class DecodeEngine:
         prefill engine stopped. False defers (no pages)."""
         payload = req.handoff["payload"]
         P = int(payload["pos"])
+        t_admit = time.time()
         if self.paged:
             pool, prefix, pt, cache = self._pool, self._prefix, self._pt, \
                 self._cache
@@ -1584,9 +1718,20 @@ class DecodeEngine:
         first = int(payload["first"])
         self._token[slot] = first
         self._rngs[slot] = np.asarray(payload["rng"], np.uint32)
+        labels = {"deployment": self.deployment}
+        sm["engine_admission_wait"].observe(max(t_admit - req.enq_t, 0.0),
+                                            labels=labels)
+        created = req.handoff.get("created_t")
+        if created:
+            # Export stamp to import: the handoff latency, on the wall
+            # clock (the two engines may be two processes).
+            sm["kv_handoff"].observe(max(time.time() - float(created), 0.0),
+                                     labels=labels)
         self._count(handoffs_imported=1,
                     admitted=1 if req.skip == 0 else 0)
-        return self._enter_steady_state(req, slot, first, P, pages)
+        _driver_emit("engine.import", request=req.req_id, slot=slot,
+                     epoch=self._epoch, pos=P)
+        return self._enter_steady_state(req, slot, first, P, pages, sm)
 
     def _cover_pages(self) -> bool:
         """Allocate-on-advance at a chunk boundary: every occupied slot
@@ -1598,17 +1743,22 @@ class DecodeEngine:
         ps = self.page_size
         # Cull dead PARKED lanes first: a parked slot never reaches the
         # post-dispatch closed/deadline checks and would pin its pages.
+        culled = False
         for i, st in enumerate(self._state):
             if st is None or not st.parked:
                 continue
             if st.lane.closed:
                 self._free_slot(i)
                 self._count(abandoned=1)
+                culled = True
             elif deadline_expired(st.deadline_s):
                 st.lane.q.put(("err", RequestDeadlineExceeded(
                     "request deadline passed while parked for pages")))
                 self._free_slot(i)
-                self._count(expired=1)
+                self._expired()
+                culled = True
+        if culled:
+            self._observe_pages()
         if not any(s is not None for s in self._state):
             return False             # nothing left to dispatch
         runnable = 0
@@ -1645,9 +1795,13 @@ class DecodeEngine:
         st = self._state[youngest]
         req = st.req
         req.skip = st.emitted
+        req.enq_t = time.time()
         self._free_slot(youngest)
         self._pending.appendleft(req)
         self._count(preempted=1)
+        _driver_emit("engine.preempt", request=req.req_id, slot=youngest,
+                     epoch=self._epoch, delivered=st.emitted)
+        self._observe_pages()
         return False
 
     def _dispatch_chunk(self, epoch: int = -1, cover: bool = True):
@@ -1663,11 +1817,32 @@ class DecodeEngine:
         active = np.array([s is not None and not s.parked
                            for s in self._state], bool)
         n_active = int(active.sum())
+        # ``dispatch_s`` is the host's wall time of the step call, which
+        # ends with the copy of the chunk's tokens to the host that
+        # delivery needs anyway; nothing else waits for the device.
+        t0 = time.time()
         toks_np, _done, rngs_np = self._step(self._token, self._rngs,
                                              active)
+        t1 = time.time()
         if self._stale(epoch):
             return                    # stale driver: drop on the floor
+        sm = serve_metrics()
+        labels = {"deployment": self.deployment}
+        sm["engine_slot_occupancy"].observe(n_active / self.slots,
+                                            labels=labels)
+        sm["engine_dispatches"].inc(labels=labels)
         self._count(dispatches=1, occupancy_sum=n_active / self.slots)
+        _driver_emit("engine.dispatch", epoch=self._epoch, active=n_active,
+                     chunk=self.chunk, dispatch_s=round(t1 - t0, 6))
+        if self.tp > 1:
+            _driver_emit("shard.dispatch", epoch=self._epoch,
+                         mesh=[("tp", self.tp)],
+                         program="chunk_paged" if self.paged else "chunk")
+        if self.paged and self.attn_kernel == "cuda":
+            # One per chunk dispatch through K1 (the kernel runs chunk
+            # times per layer inside it): the reference's "pallas" count.
+            sm["engine_attn_kernel_dispatches"].inc(labels=labels)
+            self._count(attn_kernel_dispatches=1)
         self._peak(n_active)
         emitted = 0
         for i, st in enumerate(self._state):
@@ -1676,7 +1851,7 @@ class DecodeEngine:
             self._token[i] = toks_np[i, -1]
             self._rngs[i] = rngs_np[i]
             st.pos += self.chunk             # mirrors the device pos
-            n, j, running = self._deliver(i, st, toks_np[i], self.chunk)
+            n, j, running = self._deliver(i, st, toks_np[i], self.chunk, sm)
             emitted += n
             if running and self._drafter is not None:
                 # Adaptive fallback round: keep the drafter's history
@@ -1684,7 +1859,9 @@ class DecodeEngine:
                 # proposed.
                 self._drafter.observe(i, toks_np[i, :j], -1)
         if emitted:
+            sm["engine_tokens"].inc(emitted, labels=labels)
             self._count(tokens=emitted)
+        self._observe_pages(sm)
 
     def _dispatch_spec(self, epoch: int = -1):
         """Draft-k-verify-once twin of :meth:`_dispatch_chunk`
@@ -1720,19 +1897,38 @@ class DecodeEngine:
                                                self._rngs, active)
         if self._stale(epoch):
             return                    # stale driver: drop on the floor
+        sm = serve_metrics()
+        labels = {"deployment": self.deployment}
+        sm["engine_slot_occupancy"].observe(n_active / self.slots,
+                                            labels=labels)
+        sm["engine_dispatches"].inc(labels=labels)
         accepted = int(acc_np[active].sum())
+        sm["engine_spec_proposed"].inc(self.draft_k * n_active,
+                                       labels=labels)
+        if accepted:
+            sm["engine_spec_accepted"].inc(accepted, labels=labels)
         self._count(dispatches=1, occupancy_sum=n_active / self.slots,
                     spec_rounds=1, spec_proposed=self.draft_k * n_active,
                     spec_accepted=accepted, spec_lanes=n_active)
+        # A verify round runs no decode attention kernel: nothing for
+        # attn_kernel_dispatches (``engine.py:2392-2401``).
+        _driver_emit("engine.dispatch", epoch=self._epoch, active=n_active,
+                     spec=True, accepted=accepted)
+        if self.tp > 1:
+            _driver_emit("shard.dispatch", epoch=self._epoch,
+                         mesh=[("tp", self.tp)],
+                         program="verify_paged" if self.paged
+                         else "verify")
         self._peak(n_active)
         emitted = 0
         for i, st in enumerate(self._state):
             if st is None or not active[i]:
                 continue
             na = int(acc_np[i])
+            sm["engine_spec_accept_len"].observe(na, labels=labels)
             self._rngs[i] = rngs_np[i]
             st.pos += na + 1                 # mirrors the device pos
-            n, j, running = self._deliver(i, st, com_np[i], na + 1)
+            n, j, running = self._deliver(i, st, com_np[i], na + 1, sm)
             emitted += n
             if j:
                 # The last delivered token, kept also when the lane just
@@ -1743,14 +1939,16 @@ class DecodeEngine:
             if running:
                 self._drafter.observe(i, com_np[i, :j], na)
         if emitted:
+            sm["engine_tokens"].inc(emitted, labels=labels)
             self._count(tokens=emitted)
+        self._observe_pages(sm)
 
     def _peak(self, n_active: int):
         with self._stats_lock:
             self._stats["peak_active"] = max(self._stats["peak_active"],
                                              n_active)
 
-    def _deliver(self, i: int, st: _Slot, row: np.ndarray, adv: int
+    def _deliver(self, i: int, st: _Slot, row: np.ndarray, adv: int, sm
                  ) -> Tuple[int, int, bool]:
         """Route the ``adv`` tokens slot ``i`` produced this round
         (``row[:adv]``): free it if its consumer left or its deadline
@@ -1765,7 +1963,7 @@ class DecodeEngine:
             st.lane.q.put(("err", RequestDeadlineExceeded(
                 "request deadline passed mid-generation")))
             self._free_slot(i)
-            self._count(expired=1)
+            self._expired(sm)
             return 0, 0, False
         j = min(adv, st.remaining)
         finished = st.remaining <= adv

@@ -24,10 +24,12 @@ host devices ``tests/conftest.py`` forces.
   that fails under a live engine, or that rank 0 leaves mid-chunk, is
   closed and replaced at the restart.
 
+- Every ``engine.dispatch`` flight-recorder event of a tp=2 engine is
+  followed by its ``shard.dispatch`` (the mesh shape and the program),
+  as ``test_shard_dispatch_event_and_stats`` asks of the reference.
+
 ``test_tp_recompile_guard`` and ``test_tp_smoke_benchmark`` have no
-counterpart (the port compiles no programs and has no benchmark yet),
-nor ``test_shard_dispatch_event_and_stats`` (the flight recorder comes
-with the serve front).
+counterpart (the port compiles no programs and has no benchmark yet).
 """
 import dataclasses
 import threading
@@ -153,6 +155,27 @@ def test_spec_decode_identity(tp):
         finally:
             eng.shutdown()
     assert (outs[0] == outs[1]).all() and (outs[0] == outs[2]).all(), outs
+
+
+def test_shard_dispatch_event(monkeypatch):
+    """Each chunk dispatch at tp=2 emits ``engine.dispatch`` then
+    ``shard.dispatch`` with ``mesh=[("tp", 2)]`` and the paged chunk
+    program, from rank 0's driver (events captured in place of
+    ``_driver_emit``)."""
+    from ray_tpu_torch.serve import engine as tengine
+
+    seen = []
+    monkeypatch.setattr(tengine, "_driver_emit",
+                        lambda kind, **attrs: seen.append((kind, attrs)))
+    _, stats = _serve(_engine(2, **POOLS["fp"]))
+    pairs = [(k, a) for k, a in seen
+             if k in ("engine.dispatch", "shard.dispatch")]
+    assert stats["dispatches"] > 0
+    assert [k for k, _ in pairs] == \
+        ["engine.dispatch", "shard.dispatch"] * stats["dispatches"]
+    for (_, disp), (_, shard) in zip(pairs[::2], pairs[1::2]):
+        assert shard == {"epoch": disp["epoch"], "mesh": [("tp", 2)],
+                         "program": "chunk_paged"}
 
 
 # --------------------------------------------------------- config plane

@@ -394,6 +394,23 @@ def test_handoff_identity(jax_params, torch_params, src_paged, dst_paged,
         dec.shutdown()
 
 
+def test_descriptor_keys_match_reference(jax_params, torch_params):
+    """The port's handoff descriptor has the reference's keys,
+    ``node_id`` (None outside a runtime) and ``deployment`` included."""
+    descs = {}
+    for port, params in ((False, jax_params), (True, torch_params)):
+        pre = _engine(params, port=port, role="prefill",
+                      deployment="ho-keys", **_pool_kw(True))
+        try:
+            descs[port] = pre.handoff(_prompt(1), 6, seed=2)
+        finally:
+            pre.shutdown()
+    assert set(descs[True]) == set(descs[False])
+    assert descs[True]["node_id"] is None and descs[False]["node_id"] is None
+    assert descs[True]["deployment"] == descs[False]["deployment"] == \
+        "ho-keys"
+
+
 def test_handoff_resume_from_suppression(jax_params, torch_params):
     pre = _engine(torch_params, port=True, role="prefill")
     dec = _engine(torch_params, port=True, role="decode")

@@ -1,12 +1,13 @@
 """The port stands alone: ``ray_tpu_torch`` and ``chip_smoke.py`` import
 neither ``jax`` nor ``ml_dtypes`` nor anything of the JAX package
-``ray_tpu``.
+``ray_tpu`` or of the developer tools under ``tools/``.
 
 Checked twice: by an AST scan of every file in the package (the threefry
 PRNG and the drafters, which reimplement JAX's and copy the reference's,
 included) and of ``chip_smoke.py``, and by serving nano requests
 (greedy, seeded temperature > 0, and speculative with the n-gram
-drafter), handing one request off from a prefill engine to a decode
+drafter), serving one request with the flight recorder on a temporary
+directory and reading its ring back, handing one request off from a prefill engine to a decode
 engine, running batch inference with a progress log and resuming it
 once from the log, taking a nano train step (flash attention, ``dots``
 remat), and serving one request and taking one train step with a nano
@@ -18,7 +19,7 @@ update, one multi-agent PPO iteration and one IMPALA iteration on two
 runner threads, in
 a fresh interpreter where ``jax`` and ``ml_dtypes`` are poisoned in
 ``sys.modules`` and an import hook refuses them, ``optax``,
-``gymnasium``, and ``ray_tpu`` and ``ray_tpu.*`` (but not
+``gymnasium``, ``tools``, and ``ray_tpu`` and ``ray_tpu.*`` (but not
 ``ray_tpu_torch``). The AST scan also refuses ``optax`` anywhere and a
 module-level ``gymnasium`` import (the card's machine has neither). A subprocess, because this
 suite's conftest imports JAX into the test process. The tp=2 engine's
@@ -45,7 +46,7 @@ def _forbidden(name: str) -> bool:
     return top in FORBIDDEN
 
 
-FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "ray_tpu", "optax")
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "ray_tpu", "optax", "tools")
 
 
 def test_no_jax_or_reference_imports_in_source():
@@ -67,7 +68,8 @@ def test_no_jax_or_reference_imports_in_source():
                  "rllib/bc.py", "rllib/marwil.py", "rllib/_threads.py",
                  "rllib/multi_agent.py", "rllib/dreamerv3.py",
                  "rllib/impala.py", "rllib/appo.py", "data/__init__.py",
-                 "data/block.py", "data/llm.py"):
+                 "data/block.py", "data/llm.py", "_private/events.py",
+                 "_private/metrics.py", "serve/request.py"):
         assert os.path.join(PKG, must) in files, must
     files.append(os.path.join(ROOT, "chip_smoke.py"))
     bad = []
@@ -113,7 +115,8 @@ _CHILD = r"""
 import importlib.abc
 import sys
 
-BLOCKED = ("jax", "jaxlib", "ml_dtypes", "ray_tpu", "optax", "gymnasium")
+BLOCKED = ("jax", "jaxlib", "ml_dtypes", "ray_tpu", "optax", "gymnasium",
+           "tools")
 sys.modules["jax"] = None          # `import jax` raises ImportError
 sys.modules["ml_dtypes"] = None
 
@@ -129,25 +132,42 @@ class _Refuse(importlib.abc.MetaPathFinder):
 sys.meta_path.insert(0, _Refuse())
 
 import dataclasses
+import tempfile
 
 import numpy as np
 import torch
 
+from ray_tpu_torch._private import events as ev
+from ray_tpu_torch._private.metrics import serve_metrics
 from ray_tpu_torch.models import gpt
 from ray_tpu_torch.serve._stream import _EngineStream
 from ray_tpu_torch.serve.engine import DecodeEngine
 
 cfg = gpt.CONFIGS["nano"]
 params = gpt.init_params(cfg, seed=0, device="cpu")
-eng = DecodeEngine(params, cfg, slots=2, chunk=4, max_len=64,
-                   prompt_buckets=(8, 16), page_size=8, device="cpu")
-try:
-    outs = [np.concatenate(list(eng.stream(
-        np.arange(n, dtype=np.int32) % cfg.vocab_size, 6)))
-        for n in (5, 11)]
-finally:
-    eng.shutdown()
+# The flight recorder on a temporary directory, read back; the serve
+# metrics in the port's own registry.
+with tempfile.TemporaryDirectory() as evdir:
+    rec = ev.init(evdir, proc="isolated")
+    eng = DecodeEngine(params, cfg, slots=2, chunk=4, max_len=64,
+                       prompt_buckets=(8, 16), page_size=8, device="cpu",
+                       deployment="isolated")
+    try:
+        outs = [np.concatenate(list(eng.stream(
+            np.arange(n, dtype=np.int32) % cfg.vocab_size, 6)))
+            for n in (5, 11)]
+        st = eng.stats()
+    finally:
+        eng.shutdown()
+    ring = ev.read_ring(rec.path)
+    ev._reset_for_tests()
 assert [o.shape for o in outs] == [(6,), (6,)], outs
+kinds = [e["kind"] for e in ring["events"]]
+assert ring["torn"] == 0 and kinds.count("engine.admit") == 2, kinds
+assert kinds.count("engine.dispatch") == st["dispatches"] > 0, (kinds, st)
+assert st["events"]["enabled"] and st["events"]["dropped"] == {}, st
+tokens = dict(serve_metrics()["engine_tokens"].collect())
+assert tokens[(("deployment", "isolated"),)] == 12, tokens
 for kw in (dict(temperature=0.8), dict(spec_decode="ngram", paged=False)):
     eng = DecodeEngine(params, cfg, slots=2, chunk=4, max_len=64,
                        prompt_buckets=(8, 16), device="cpu", **kw)

@@ -14,6 +14,7 @@ numpy seeds. Tolerances, f32 throughout:
   are bit-equal.
 """
 import importlib.util
+import inspect
 import os
 import pickle
 
@@ -229,6 +230,22 @@ def _record_samples(algo):
 
     algo.env_runner_group.local.sample = wrapped
     return seen
+
+
+def test_sample_with_len_is_sample():
+    """``SingleAgentEnvRunner.sample_with_len`` is the reference's alias
+    of ``sample`` (``ray_tpu/rllib/env_runner.py:166``): two runners from
+    one seed give the same fragment through each."""
+    from ray_tpu.rllib.env_runner import SingleAgentEnvRunner as RRunner
+    from ray_tpu_torch.rllib.env_runner import SingleAgentEnvRunner
+
+    assert inspect.signature(SingleAgentEnvRunner.sample_with_len) == \
+        inspect.signature(RRunner.sample_with_len)
+    a, b = (_ppo(P).env_runner_group.local for _ in range(2))
+    got, want = b.sample_with_len(), a.sample()
+    assert sorted(got.cols) == sorted(want.cols) and len(got) == 128
+    for k in want.cols:
+        assert np.array_equal(got[k], want[k]), k
 
 
 def test_ppo_iteration_matches_reference():

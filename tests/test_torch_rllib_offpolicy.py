@@ -9,6 +9,8 @@ in both, so they hand both learners the same rows). Every metric within
 SAC's noise is drawn along the reference's key chain with the port's
 threefry, bit-equal to ``jax.random``.
 """
+import inspect
+
 import jax
 import numpy as np
 import pytest
@@ -178,6 +180,32 @@ def test_sac_learner_matches_reference(cql_weight):
     port.set_weights(w)
     assert float(port.params["log_alpha"]) == float(
         got["params"]["log_alpha"])
+
+
+@pytest.mark.parametrize("algo", ["dqn", "sac"])
+def test_update_full_is_update(algo):
+    """``update_full`` is the reference's alias of ``update``
+    (``ray_tpu/rllib/dqn.py:164``, ``sac.py:300``), with its signature:
+    two learners from one seed, one updated through each, stay equal."""
+    ref_cls, mod = (rdqn.DQNLearner, pdqn) if algo == "dqn" else \
+        (rsac.SACLearner, psac)
+    cls = mod.DQNLearner if algo == "dqn" else mod.SACLearner
+    assert inspect.signature(cls.update_full) == \
+        inspect.signature(ref_cls.update_full)
+    if algo == "dqn":
+        spec = dict(obs_dim=4, num_actions=3, hidden=(32, 32),
+                    module_cls=pdqn.EpsilonGreedyModule)
+    else:
+        spec = dict(BOX, module_cls=psac.SquashedGaussianModule)
+    a, b = (cls(P.RLModuleSpec(**spec), seed=2, device="cpu")
+            for _ in range(2))
+    rng = np.random.default_rng(5)
+    for _ in range(2):
+        batch = transitions(rng, 16, spec["obs_dim"], spec["num_actions"],
+                            algo == "sac")
+        m_a, m_b = a.update(batch), b.update_full(batch, unused=1)
+        assert metric_err(m_b, m_a) == 0.0, (m_a, m_b)
+    assert tree_err(b.get_state()["params"], a.get_state()["params"]) == 0
 
 
 def test_squash_logp_is_logaddexp_softplus():
