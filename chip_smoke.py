@@ -93,6 +93,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
    pool's, the dropped-events counter the recorder's drops; K1 launched
    ``n_layer * chunk`` times a dispatch), then the same serve with the
    recorder off and on, three pairs, tok/s of each;
+   then the request batcher and trace spans (``batching_phase``): the 12
+   requests from 12 caller threads through ``@batch(continuous=True)``
+   on a K1 engine, tracing on (streams equal to the direct greedy K1
+   streams, one ``engine.admission`` span a request under its
+   ``request`` span, ``decode.chunk`` tokens adding up to each stream,
+   K1 launched ``n_layer * chunk`` times a dispatch, no span dropped);
+   ResNet-50 bf16 behind ``@batch(max_batch_size=16,
+   pad_to_bucket=True)`` with 16 concurrent callers (bucket sizes only,
+   logits against the unbatched forward, one ``batch.wait`` span a
+   caller); the 12 requests at seeded T=0.8 through the same wrapper
+   and one past its deadline (``RequestDeadlineExceeded``, counted once);
    then tensor-parallel decode: ``DecodeEngine(tp=2)`` on a gloo group
    of two ranks on this card (this process and a follower process),
    K1 over each rank's 6 heads held against its plain version (bf16
@@ -2613,7 +2624,7 @@ def serve(params, cfg, reqs, *, device, attn_kernel=None, seeds=None,
     import numpy as np
     import torch
 
-    from ray_tpu_torch.serve._stream import _EngineStream
+    from ray_tpu_torch.serve.batching import _EngineStream
     from ray_tpu_torch.serve.engine import DecodeEngine
 
     eng = DecodeEngine(params, cfg, slots=slots, chunk=chunk,
@@ -3738,6 +3749,365 @@ def observability_phase(params, cfg, reqs, card) -> None:
         f"{time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------- batching front
+BATCH_DEPLOYMENT = "gpt_continuous"
+BATCH_DEADLINE_S = 600.0           # generous: the requests must not expire
+BATCH_TEMPERATURE = 0.8
+#: (b) benchmarks/serve_resnet.py:69-70's batcher configuration.
+RESNET_SERVE_BATCH = dict(max_batch_size=16, batch_wait_timeout_s=0.005,
+                          pad_to_bucket=True)
+#: (b) each caller's logits against its image's row of an unbatched
+#: forward, relative to that row's largest |logit|: cuDNN picks its
+#: algorithm by batch size, and two bf16 runs of ~50 rounded conv/BN
+#: outputs (2^-9 relative each) may part by a few percent of the range,
+#: as bf16 does against f32 (RESNET_BF16_REL).
+RESNET_BATCH_REL = 0.05
+
+
+def _request_scope(request, deadline_s, deployment, request_id):
+    """Set the request context a replica sets around user code; returns
+    a function that resets it."""
+    sets = [(request._request_deadline, deadline_s),
+            (request._request_deployment, deployment),
+            (request._request_id, request_id)]
+    tokens = [(var, var.set(value)) for var, value in sets]
+
+    def reset():
+        for var, tok in reversed(tokens):
+            var.reset(tok)
+    return reset
+
+
+def _ordered_callers(fn, items, scope, tracing):
+    """One thread a request, each inside a ``request`` span and its
+    request context; thread i calls ``fn`` (which enqueues) only after
+    thread i-1 did, so the engine admits in request order as ``serve``
+    does. Returns (threads, the event set once every call enqueued,
+    results: i -> (span context, tokens or the exception, chunk
+    stamps))."""
+    import numpy as np
+
+    turn = [threading.Event() for _ in range(len(items) + 1)]
+    turn[0].set()
+    out = {}
+
+    def run(i):
+        turn[i].wait()
+        reset = scope(i)
+        try:
+            with tracing.span("request") as sp:
+                try:
+                    stream = fn(items[i])
+                finally:
+                    turn[i + 1].set()
+                pieces, stamps = [], []
+                try:
+                    for piece in stream:
+                        stamps.append(time.perf_counter())
+                        pieces.append(piece)
+                    out[i] = (sp, np.concatenate(pieces), stamps)
+                except Exception as e:  # noqa: BLE001 - held by the phase
+                    out[i] = (sp, e, stamps)
+        finally:
+            reset()
+
+    threads = [threading.Thread(target=run, args=(i,), daemon=True)
+               for i in range(len(items))]
+    for t in threads:
+        t.start()
+    return threads, turn[-1], out
+
+
+def _join(threads, what):
+    for t in threads:
+        t.join(timeout=600)
+    if any(t.is_alive() for t in threads):
+        raise TimeoutError(f"batching ({what}): callers did not finish "
+                           f"within 600 s")
+
+
+def batching_phase(params, cfg, reqs, toks, card, greedy_tok_s=None) -> None:
+    """The serving front's request batcher (``ray_tpu_torch.serve.batching``)
+    and the engine's trace spans (``ray_tpu_torch.util.tracing``) on the
+    card, tracing on:
+
+    (a) the 12 serving requests from 12 caller threads through a class
+    whose method carries ``@batch(continuous=True)`` over a K1 engine
+    (deployment ``gpt_continuous``), each caller inside a ``request``
+    span with a deadline, deployment and request id set as a replica
+    sets them: the streams equal the direct greedy K1 streams ``toks``,
+    one ``engine.admission`` span a request under its ``request`` span,
+    each request's ``decode.chunk`` tokens add up to its stream after
+    the first, K1 launched ``n_layer * chunk`` times a dispatch, no span
+    dropped;
+    (b) ResNet-50 (full width, bf16, seed-0 weights) behind
+    ``@batch(max_batch_size=16, batch_wait_timeout_s=0.005,
+    pad_to_bucket=True)`` (``benchmarks/serve_resnet.py:69-70``), 16
+    concurrent callers, twice (the flusher thread's first CUDA work, then
+    steady state), each round: the handler sees only sizes in
+    ``default_buckets(16)``, each caller's logits match its image's row
+    of an unbatched forward within ``RESNET_BATCH_REL``, one
+    ``batch.wait`` span a caller, ``serve_batch_size`` observed once a
+    flush;
+    (c) the 12 requests at seeded T=0.8 through the same wrapper, equal
+    to a direct ``serve`` with the same seeds, plus one request whose
+    deadline has passed: it raises ``RequestDeadlineExceeded`` and is
+    counted once under ``requests_expired{where="engine"}``."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch._private.metrics import serve_metrics
+    from ray_tpu_torch.models import resnet
+    from ray_tpu_torch.ops import paged_attention as pa
+    from ray_tpu_torch.serve import batching, request
+    from ray_tpu_torch.serve.engine import DecodeEngine
+    from ray_tpu_torch.util import tracing
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    sm = serve_metrics()
+    kw = dict(slots=16, chunk=8, max_len=1024, page_size=16,
+              attn_kernel="cuda", device=dev, auto_start=False)
+    greedy = DecodeEngine(params, cfg, deployment=BATCH_DEPLOYMENT, **kw)
+    sampled = DecodeEngine(params, cfg, temperature=BATCH_TEMPERATURE,
+                           deployment=BATCH_DEPLOYMENT + "_t08", **kw)
+
+    class GPTDeployment:
+        """A deployment's decode method: per request, the engine and its
+        submit keywords; the wrapper submits under the request's
+        context."""
+
+        engines = {"greedy": greedy, "sampled": sampled}
+
+        @batching.batch(continuous=True, page_size=16, attn_kernel="cuda")
+        def decode(self, req):
+            return self.engines[req["engine"]], {
+                "prompt": req["prompt"], "max_new": req["max_new"],
+                "seed": req["seed"]}
+
+    gpt_dep = GPTDeployment()
+    tracing.drain()
+    dropped0 = tracing.dropped_total()
+    tracing.enable()
+    try:
+        # (a) greedy through @batch(continuous=True)
+        items = [{"engine": "greedy", "prompt": p, "max_new": m, "seed": 0}
+                 for p, m in reqs]
+        deadline = request.make_deadline(BATCH_DEADLINE_S)
+        threads, queued, out = _ordered_callers(
+            gpt_dep.decode, items, lambda i: _request_scope(
+                request, deadline, BATCH_DEPLOYMENT, f"rq-batch-{i}"),
+            tracing)
+        if not queued.wait(120):
+            raise TimeoutError("batching (a): the callers did not enqueue")
+        pa.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        greedy.start()
+        _join(threads, "a")
+        wall = time.perf_counter() - t0
+        launches = pa.launches
+        st = greedy.stats()
+        spans = tracing.drain()
+        got = [out[i][1] for i in range(len(reqs))]
+        for i, g in enumerate(got):
+            if isinstance(g, Exception):
+                raise AssertionError(f"batching (a): request {i} failed: "
+                                     f"{g!r}")
+        check_streams("batching (a)", got, reqs, cfg.vocab_size)
+        same = [np_equal(g, t) for g, t in zip(got, toks)]
+        by_name = {}
+        for s in spans:
+            by_name[s["name"]] = by_name.get(s["name"], 0) + 1
+        per_req = []
+        for i in range(len(reqs)):
+            sid = out[i][0]["span_id"]
+            mine = [s for s in spans if s["parent_id"] == sid]
+            per_req.append((
+                sum(s["name"] == "engine.admission" for s in mine),
+                sum(s["attrs"]["tokens"] for s in mine
+                    if s["name"] == "decode.chunk")))
+        want_launches = cfg.n_layer * 8 * st["dispatches"]
+        n_tok = sum(map(len, got))
+        rate = n_tok / wall
+        log(f"batching (a) @batch(continuous=True) -> K1 engine "
+            f"'{BATCH_DEPLOYMENT}' [{card}]: {len(reqs)} caller threads, "
+            f"streams equal to the direct greedy K1 streams: {sum(same)} of "
+            f"{len(same)}; spans by name {by_name}; engine.admission and "
+            f"decode.chunk tokens a request {per_req}; dispatches "
+            f"{st['dispatches']}, K1 launches {launches} (want n_layer*chunk"
+            f"*dispatches={want_launches}); {n_tok} tokens in {wall:.4f} s = "
+            f"{rate:.2f} tok/s (the direct greedy serve "
+            f"{greedy_tok_s if greedy_tok_s is None else round(greedy_tok_s, 2)}"
+            f" tok/s; host-bound, not gated); spans dropped "
+            f"{tracing.dropped_total() - dropped0}")
+        if not all(same):
+            raise AssertionError("batching (a): streams through @batch "
+                                 "differ from the direct greedy streams")
+        if any(a != 1 for a, _ in per_req) or any(
+                n != len(t) - 1 for (_, n), t in zip(per_req, got)):
+            raise AssertionError("batching (a): engine.admission or "
+                                 "decode.chunk spans wrong: " + str(per_req))
+        if by_name.get("request") != len(reqs):
+            raise AssertionError(f"batching (a): {by_name}")
+        if launches != want_launches or launches == 0:
+            raise AssertionError("batching (a): K1 did not run on every "
+                                 "decode step")
+        if tracing.dropped_total() != dropped0:
+            raise AssertionError("batching (a): spans were dropped")
+
+        # (c) seeded T=0.8 through the same wrapper, plus an expired
+        # request
+        seeds = list(range(len(reqs)))
+        want, *_ = serve(params, cfg, reqs, device=dev, attn_kernel="cuda",
+                         seeds=seeds, temperature=BATCH_TEMPERATURE)
+        items = [{"engine": "sampled", "prompt": p, "max_new": m,
+                  "seed": s} for (p, m), s in zip(reqs, seeds)]
+        items.append(dict(items[0], seed=99))
+        n = len(reqs)
+        dep_c = BATCH_DEPLOYMENT + "_t08"
+        expired_key = (("deployment", dep_c), ("where", "engine"))
+        e0 = dict(sm["requests_expired"].collect()).get(expired_key, 0)
+        deadlines = [request.make_deadline(BATCH_DEADLINE_S)] * n + [
+            request.make_deadline(-1.0)]
+        threads, queued, out = _ordered_callers(
+            gpt_dep.decode, items, lambda i: _request_scope(
+                request, deadlines[i], dep_c, f"rq-batch-t08-{i}"), tracing)
+        if not queued.wait(120):
+            raise TimeoutError("batching (c): the callers did not enqueue")
+        sampled.start()
+        _join(threads, "c")
+        expired = dict(sm["requests_expired"].collect()).get(
+            expired_key, 0) - e0
+        stc = sampled.stats()
+        tracing.drain()
+        got = [out[i][1] for i in range(n)]
+        last = out[n][1]
+        same = [not isinstance(g, Exception) and np_equal(g, w)
+                for g, w in zip(got, want)]
+        log(f"batching (c) seeded T={BATCH_TEMPERATURE} through the same "
+            f"wrapper [{card}]: {sum(same)} of {n} streams equal to the "
+            f"direct serve with the same seeds; the request past its "
+            f"deadline raised {type(last).__name__}; requests_expired"
+            f"{{where=engine}} +{expired}, stats expired {stc['expired']}")
+        if not all(same):
+            raise AssertionError("batching (c): seeded streams through "
+                                 "@batch differ from the direct serve")
+        if not isinstance(last, request.RequestDeadlineExceeded) or \
+                expired != 1 or stc["expired"] != 1:
+            raise AssertionError("batching (c): the expired request was "
+                                 "not failed and counted once")
+    finally:
+        greedy.shutdown()
+        sampled.shutdown()
+
+    # (b) ResNet-50 bf16 behind the bucketed batcher
+    try:
+        t_rn = time.perf_counter()
+        rcfg = resnet.ResNetConfig(depth=50)
+        rparams = resnet.init_params(rcfg, 0, device=dev)
+        predict = resnet.make_predictor(rcfg, rparams)
+        buckets = batching.default_buckets(
+            RESNET_SERVE_BATCH["max_batch_size"])
+        rng = np.random.default_rng(17)
+        n_img = RESNET_SERVE_BATCH["max_batch_size"]
+        imgs = rng.standard_normal((n_img, 224, 224, 3)).astype(np.float32)
+        for b in buckets:             # warm every bucket (cuDNN plans)
+            predict(imgs[:b]).cpu()
+        alone = [predict(imgs[i:i + 1]).float().cpu()[0]
+                 for i in range(n_img)]
+
+        class ResNetDeployment:
+            def __init__(self):
+                self.sizes = []
+
+            @batching.batch(**RESNET_SERVE_BATCH)
+            def run_batch(self, images):
+                self.sizes.append(len(images))
+                return list(predict(np.stack(images)).float().cpu())
+
+        rn = ResNetDeployment()
+        dep_b = "resnet50"
+        key = (("deployment", dep_b),)
+        rdeadline = request.make_deadline(BATCH_DEADLINE_S)
+
+        def round_(r):
+            """16 concurrent callers, each in its ``request`` span."""
+            res, lat = {}, {}
+            start = threading.Event()
+
+            def call(i):
+                reset = _request_scope(request, rdeadline, dep_b,
+                                       f"rq-rn-{r}-{i}")
+                try:
+                    start.wait()
+                    with tracing.span("request") as sp:
+                        t = time.perf_counter()
+                        res[i] = (sp, rn.run_batch(imgs[i]))
+                        lat[i] = time.perf_counter() - t
+                finally:
+                    reset()
+
+            threads = [threading.Thread(target=call, args=(i,),
+                                        daemon=True) for i in range(n_img)]
+            for t in threads:
+                t.start()
+            start.set()
+            _join(threads, "b")
+            return res, lat
+
+        # Round 0 is the flusher thread's first CUDA work (its own
+        # cuBLAS/cuDNN handles); round 1 is steady state.
+        for r in range(2):
+            before = dict(sm["batch_size"].collect()).get(key)
+            n0 = before[-1] if before else 0
+            flushes0 = len(rn.sizes)
+            res, lat = round_(r)
+            bq = rn.__dict__["__rt_batch_queue_run_batch"]
+            sizes, pre = rn.sizes[flushes0:], bq.batch_sizes[flushes0:]
+            spans = tracing.drain()
+            after = dict(sm["batch_size"].collect()).get(key)
+            flushes_seen = (after[-1] if after else 0) - n0
+            errs = [float((res[i][1] - alone[i]).abs().max()
+                          / alone[i].abs().max()) for i in range(n_img)]
+            waits = {}
+            for s in spans:
+                if s["name"] == "batch.wait":
+                    waits[s["parent_id"]] = waits.get(s["parent_id"], 0) + 1
+            one_wait = all(waits.get(res[i][0]["span_id"]) == 1
+                           for i in range(n_img))
+            log(f"batching (b) round {r}: ResNet-50 bf16 behind @batch"
+                f"({RESNET_SERVE_BATCH}) [{card}]: {n_img} callers; "
+                f"handler batch sizes {sizes} (pre-pad {pre}; buckets "
+                f"{buckets}); logits vs the unbatched forward, max |diff| "
+                f"/ max |row|: worst {max(errs):.4g} (tolerance "
+                f"{RESNET_BATCH_REL}); batch.wait spans "
+                f"{sum(waits.values())}, one a caller: {one_wait}; "
+                f"serve_batch_size observations {flushes_seen} for "
+                f"{len(pre)} flushes; caller latency p50 "
+                f"{p50(list(lat.values())) * 1e3:.3f} ms, max "
+                f"{max(lat.values()) * 1e3:.3f} ms")
+            if not set(sizes) <= set(buckets) or sum(pre) != n_img:
+                raise AssertionError("batching (b): the handler saw a size "
+                                     "outside the buckets")
+            if not max(errs) <= RESNET_BATCH_REL:
+                raise AssertionError("batching (b): batched logits differ "
+                                     "from the unbatched forward")
+            if not one_wait or flushes_seen != len(pre):
+                raise AssertionError("batching (b): batch.wait spans or "
+                                     "serve_batch_size observations wrong")
+        log(f"batching (b): {time.perf_counter() - t_rn:.1f} s with the "
+            f"weights' draw")
+        if tracing.dropped_total() != dropped0:
+            raise AssertionError("batching: spans were dropped")
+        del rparams, predict
+    finally:
+        tracing.disable()
+        tracing.drain()
+    torch.cuda.empty_cache()
+    log(f"batching phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 # ------------------------------------------------------------------- MoE
 #: The MoE model on the card: the repo's GPT-2 small with 8 experts and
 #: the reference's own MoE defaults (top-2, capacity factor 1.25, aux
@@ -4544,6 +4914,7 @@ def main() -> int:
     lifecycle_phase(params, cfg, reqs, toks, card)
     batch_infer_phase(params, cfg, card)
     observability_phase(params, cfg, reqs, card)
+    batching_phase(params, cfg, reqs, toks, card, greedy_tok_s=n_tok / wall)
 
     # ---- 6c. tensor-parallel decode: two ranks on this card
     records += tp_phase(params, cfg, reqs, toks, reqs32, toks8,

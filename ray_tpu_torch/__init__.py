@@ -35,11 +35,18 @@ found under the same name:
 - :mod:`ray_tpu_torch.serve.draft` — the n-gram and model drafters;
 - :mod:`ray_tpu_torch.data.llm` — offline batch inference over the
   engine: ``BatchInferencer``, its saturation policy, the exactly-once
-  progress log and ``generate``.
+  progress log and ``generate``;
+- :mod:`ray_tpu_torch.serve.batching` — the request batcher ``@batch``
+  (bucketed padding, streaming batches, continuous batching over the
+  engine), with :mod:`ray_tpu_torch.serve.request` (the request context,
+  deadlines and errors) and :mod:`ray_tpu_torch.util.tracing` (spans);
+- :mod:`ray_tpu_torch.models.moe`, :mod:`ray_tpu_torch.models.resnet`,
+  :mod:`ray_tpu_torch.parallel`, :mod:`ray_tpu_torch.collective`,
+  :mod:`ray_tpu_torch.train` and :mod:`ray_tpu_torch.rllib` — MoE,
+  ResNet, sharded training and RL.
 
-Not ported yet: the serve front (replicas, routing, tracing, metrics),
-training parallelism, and everything outside the GPT model's decode and
-training step.
+Not ported: what stands on the reference's runtime (actors, the head,
+the serve controller, replicas and proxy).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card and without that argument they raise.

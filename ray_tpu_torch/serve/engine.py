@@ -84,8 +84,14 @@ reference engine's stream for the same seed (f32 compute; asserted in
   instruments (:func:`~ray_tpu_torch._private.metrics.serve_metrics`),
   labelled with its ``deployment``, at the reference's sites and with
   its attributes. Every value is a host number the driver already holds:
-  nothing synchronises the device to record it. Trace spans are left
-  for a later slice (``trace_ctx`` is accepted and ignored).
+  nothing synchronises the device to record it.
+- **Trace spans** (:mod:`~ray_tpu_torch.util.tracing`): under a request's
+  ``trace_ctx`` the engine records an ``engine.admission`` span (enqueue
+  to admission; ``imported=True`` for a handoff import) and one
+  ``decode.chunk`` span a dispatch the request took part in (its
+  ``tokens``, the ``active_slots``; ``accepted`` on a verify round), as
+  the reference does. Their stamps are the host's: a span adds no
+  device sync, and a request without a context costs one branch.
 """
 from __future__ import annotations
 
@@ -111,10 +117,11 @@ from .._private.device import (DeviceLike, resolve_device,
 from ..models import gpt_decode
 from . import handoff as _ho
 from .draft import make_drafter
-from ._stream import (_STREAM_END, RequestDeadlineExceeded, _EngineStream,
-                      _StreamLane, deadline_expired, default_buckets,
-                      remaining_s)
-from .request import get_request_id
+from ..util import tracing
+from .batching import (_STREAM_END, _EngineStream, _StreamLane,
+                       default_buckets)
+from .request import (RequestDeadlineExceeded, deadline_expired,
+                      get_request_id, remaining_s)
 
 ROLES = ("both", "prefill", "decode")
 
@@ -134,6 +141,8 @@ class _EngineRequest:
     max_new: int
     lane: _StreamLane
     deadline_s: Optional[float]
+    #: The request's wire trace context; its spans parent under it.
+    trace_ctx: Optional[dict] = None
     seed: int = 0                 # PRNG lane seed (temperature > 0)
     #: Tokens already delivered (before a recompute preemption, or by
     #: the caller's ``resume_from``): the replay regenerates them (the
@@ -163,6 +172,7 @@ class _Slot:
     lane: _StreamLane
     remaining: int                # tokens still owed to the caller
     deadline_s: Optional[float]
+    trace_ctx: Optional[dict]
     req: _EngineRequest           # for recompute preemption
     emitted: int = 1              # tokens DELIVERED to the lane
     admitted_t: float = field(default_factory=time.time)
@@ -853,8 +863,9 @@ class DecodeEngine:
         """Enqueue one request; returns its stream lane immediately. The
         driver admits it at the next chunk boundary with a free slot.
         ``deadline_s`` is an absolute ``time.time()`` stamp; ``seed``
-        seeds the request's PRNG lane (temperature > 0); ``trace_ctx`` is
-        accepted and ignored (tracing is not ported).
+        seeds the request's PRNG lane (temperature > 0); ``trace_ctx``
+        (``{"trace_id", "span_id"}``) parents the request's
+        ``engine.admission`` and ``decode.chunk`` spans.
 
         ``resume_from=n`` says the caller already holds the first ``n``
         tokens of this exact (prompt, knobs, seed) stream: the engine
@@ -879,8 +890,8 @@ class DecodeEngine:
         req_id = self._new_req_id()
         self._enqueue(_EngineRequest(
             prompt=prompt, bucket=bucket, max_new=int(max_new), lane=lane,
-            deadline_s=deadline_s, seed=int(seed), skip=resume_from,
-            req_id=req_id))
+            deadline_s=deadline_s, trace_ctx=trace_ctx, seed=int(seed),
+            skip=resume_from, req_id=req_id))
         if resume_from:
             self._count(resumed=1)
             _events.emit("engine.resume", request=req_id,
@@ -920,8 +931,9 @@ class DecodeEngine:
         lane = _StreamLane()
         self._enqueue(_EngineRequest(
             prompt=prompt, bucket=bucket, max_new=int(max_new), lane=lane,
-            deadline_s=deadline_s, seed=int(seed), export=True,
-            ttl_s=float(ttl_s or 0.0), req_id=self._new_req_id()))
+            deadline_s=deadline_s, trace_ctx=trace_ctx, seed=int(seed),
+            export=True, ttl_s=float(ttl_s or 0.0),
+            req_id=self._new_req_id()))
         rem = remaining_s(deadline_s)
         try:
             kind, val = lane.q.get(timeout=rem if rem is not None
@@ -976,7 +988,7 @@ class DecodeEngine:
             serve_metrics()["prefill_fallbacks"].inc(
                 labels={"deployment": self.deployment, "where": "engine"})
             return self.submit(prompt, max_new, seed=seed,
-                               deadline_s=deadline_s,
+                               deadline_s=deadline_s, trace_ctx=trace_ctx,
                                resume_from=resume_from)
         if resume_from < 0 or resume_from > max_new:
             raise ValueError(
@@ -989,9 +1001,9 @@ class DecodeEngine:
         lane = _StreamLane()
         self._enqueue(_EngineRequest(
             prompt=prompt, bucket=bucket, max_new=max_new, lane=lane,
-            deadline_s=deadline_s, seed=seed, skip=resume_from,
-            handoff={"payload": payload,
-                     "created_t": desc.get("created_t")},
+            deadline_s=deadline_s, trace_ctx=trace_ctx, seed=seed,
+            skip=resume_from,
+            handoff={"payload": payload, "created_t": desc.get("created_t")},
             req_id=self._new_req_id()))
         if resume_from:
             self._count(resumed=1)
@@ -1502,6 +1514,10 @@ class DecodeEngine:
         sm["engine_admission_wait"].observe(
             max(t_admit - req.enq_t, 0.0),
             labels={"deployment": self.deployment})
+        if req.trace_ctx is not None:
+            tracing.record_span("engine.admission", req.enq_t, t_admit,
+                                parent_ctx=req.trace_ctx, slot=slot,
+                                deployment=self.deployment)
         self._count(prefills=1, admitted=1 if (req.skip == 0
                                               and not req.export) else 0)
         self._token[slot] = first
@@ -1539,7 +1555,7 @@ class DecodeEngine:
             return True
         self._state[slot] = _Slot(
             lane=req.lane, remaining=req.max_new - 1,
-            deadline_s=req.deadline_s, req=req,
+            deadline_s=req.deadline_s, trace_ctx=req.trace_ctx, req=req,
             emitted=1 if req.skip == 0 else req.skip, pos=P, pages=pages,
             skip=skip)
         if self._drafter is not None:
@@ -1727,6 +1743,10 @@ class DecodeEngine:
             # clock (the two engines may be two processes).
             sm["kv_handoff"].observe(max(time.time() - float(created), 0.0),
                                      labels=labels)
+        if req.trace_ctx is not None:
+            tracing.record_span("engine.admission", req.enq_t, t_admit,
+                                parent_ctx=req.trace_ctx, slot=slot,
+                                imported=True, deployment=self.deployment)
         self._count(handoffs_imported=1,
                     admitted=1 if req.skip == 0 else 0)
         _driver_emit("engine.import", request=req.req_id, slot=slot,
@@ -1851,7 +1871,8 @@ class DecodeEngine:
             self._token[i] = toks_np[i, -1]
             self._rngs[i] = rngs_np[i]
             st.pos += self.chunk             # mirrors the device pos
-            n, j, running = self._deliver(i, st, toks_np[i], self.chunk, sm)
+            n, j, running = self._deliver(i, st, toks_np[i], self.chunk, sm,
+                                          (t0, t1, n_active))
             emitted += n
             if running and self._drafter is not None:
                 # Adaptive fallback round: keep the drafter's history
@@ -1893,8 +1914,12 @@ class DecodeEngine:
                 self._dispatch_chunk(epoch, cover=False)
                 return
         draft = self._drafter.propose(active, self._token)
+        # Host stamps for the spans, as ``dispatch_s``: the verify ends
+        # with the copy of its results to the host, nothing more.
+        t0 = time.time()
         com_np, acc_np, rngs_np = self._verify(self._token, draft,
                                                self._rngs, active)
+        t1 = time.time()
         if self._stale(epoch):
             return                    # stale driver: drop on the floor
         sm = serve_metrics()
@@ -1928,7 +1953,8 @@ class DecodeEngine:
             sm["engine_spec_accept_len"].observe(na, labels=labels)
             self._rngs[i] = rngs_np[i]
             st.pos += na + 1                 # mirrors the device pos
-            n, j, running = self._deliver(i, st, com_np[i], na + 1, sm)
+            n, j, running = self._deliver(i, st, com_np[i], na + 1, sm,
+                                          (t0, t1, n_active), accepted=na)
             emitted += n
             if j:
                 # The last delivered token, kept also when the lane just
@@ -1948,13 +1974,17 @@ class DecodeEngine:
             self._stats["peak_active"] = max(self._stats["peak_active"],
                                              n_active)
 
-    def _deliver(self, i: int, st: _Slot, row: np.ndarray, adv: int, sm
-                 ) -> Tuple[int, int, bool]:
+    def _deliver(self, i: int, st: _Slot, row: np.ndarray, adv: int, sm,
+                 timing: Tuple[float, float, int],
+                 accepted: Optional[int] = None) -> Tuple[int, int, bool]:
         """Route the ``adv`` tokens slot ``i`` produced this round
         (``row[:adv]``): free it if its consumer left or its deadline
-        passed, trim at ``remaining`` and the first EOS, suppress replay
-        tokens, stream the rest, and free it when finished. Returns
-        (tokens delivered, tokens consumed ``j``, lane still running)."""
+        passed, trim at ``remaining`` and the first EOS, record the
+        round's ``decode.chunk`` span under the request's context
+        (``timing`` = the dispatch's host stamps and active slots;
+        ``accepted`` on a verify round), suppress replay tokens, stream
+        the rest, and free it when finished. Returns (tokens delivered,
+        tokens consumed ``j``, lane still running)."""
         if st.lane.closed:                   # consumer left: free now
             self._free_slot(i)
             self._count(abandoned=1)
@@ -1972,6 +2002,14 @@ class DecodeEngine:
             if hits.size:                    # free at the EOS
                 j = int(hits[0]) + 1
                 finished = True
+        if st.trace_ctx is not None:
+            t0, t1, n_active = timing
+            attrs = dict(slot=i, active_slots=n_active, tokens=j)
+            if accepted is not None:
+                attrs["accepted"] = accepted
+            tracing.record_span("decode.chunk", t0, t1,
+                                parent_ctx=st.trace_ctx,
+                                deployment=self.deployment, **attrs)
         # Replay: the first ``skip`` regenerated tokens were delivered
         # before (a preemption or the caller's resume_from): suppress.
         cut = min(st.skip, j)

@@ -25,6 +25,7 @@ from ray_tpu_torch.models import gpt as tgpt
 from ray_tpu_torch.parallel import mesh as tmesh
 from ray_tpu_torch.train import checkpoint as tck
 from ray_tpu_torch.train import session as tsess
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _jax_params(moe: bool):

@@ -16,6 +16,7 @@ import torch
 
 from ray_tpu_torch import collective as col
 from ray_tpu_torch.parallel import mesh as tmesh
+from torch_threads import one_torch_thread  # noqa: F401
 
 OPS = ["allreduce_sum", "allreduce_max", "allreduce_min", "allgather",
        "reducescatter_sum", "reducescatter_max", "alltoall", "broadcast",

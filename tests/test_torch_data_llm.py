@@ -47,8 +47,9 @@ from ray_tpu_torch import data as td
 from ray_tpu_torch.data import block as TB
 from ray_tpu_torch.data import llm as tllm
 from ray_tpu_torch.models import gpt as tgpt
-from ray_tpu_torch.serve import _stream as tstream
+from ray_tpu_torch.serve import batching as tbatching
 from ray_tpu_torch.serve.engine import DecodeEngine
+from torch_threads import one_torch_thread  # noqa: F401
 
 J32 = dataclasses.replace(jgpt.CONFIGS["nano"], dtype=jnp.float32)
 T32 = dataclasses.replace(tgpt.CONFIGS["nano"], dtype=torch.float32)
@@ -395,7 +396,7 @@ def test_poll_matches_reference():
     want = _poll_trace(jbatching)
     assert want == [None, ("item", [4, 5]), ("item", [6]), ("end", None),
                     None, [1], ("KeyError", "'lane failed'"), True]
-    assert _poll_trace(tstream) == want
+    assert _poll_trace(tbatching) == want
 
 
 def _engine_threads(label):

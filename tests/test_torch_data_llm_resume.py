@@ -25,6 +25,7 @@ from ray_tpu_torch.data import block as TB
 from ray_tpu_torch.data import llm as tllm
 from ray_tpu_torch.models import gpt as tgpt
 from ray_tpu_torch.serve.engine import DecodeEngine
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T32 = dataclasses.replace(tgpt.CONFIGS["nano"], dtype=torch.float32)

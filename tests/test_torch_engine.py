@@ -23,6 +23,7 @@ from ray_tpu.models import gpt as jgpt
 from ray_tpu.models import gpt_decode as jgd
 from ray_tpu_torch.models import gpt as tgpt
 from ray_tpu_torch.serve.engine import DecodeEngine
+from torch_threads import one_torch_thread  # noqa: F401
 
 NANO = jgpt.CONFIGS["nano"]
 J32 = dataclasses.replace(NANO, dtype=jnp.float32)

@@ -27,13 +27,18 @@ Events are captured by replacing ``_driver_emit`` and ``events.emit`` in
 both packages' engine and ``data.llm`` modules (restored afterwards), so
 the rate caps play no part: kinds, order and every attribute but the
 ``dispatch_s`` timing must be equal, request ids included (both engines
-mint ``eng-<pid hex>-<n>`` in this process). Metrics are compared as
+mint ``eng-<pid hex>-<n>`` in this process). Every request carries a
+``trace_ctx`` made from its index, and both tracing modules' span
+buffers are swapped for fresh ones the same way: the ``engine.admission``
+and ``decode.chunk`` spans must be equal in names, order, parents and
+attributes, their timings aside. Metrics are compared as
 deltas of every instrument labelled with the scenario's deployment:
 counters by value, gauges by final value, histograms by bucket counts
 (by count alone for the timing histograms). The reference's recorder is
 never enabled and the environment is not touched; the port's real ring
 is checked on a ``tmp_path``.
 """
+import collections
 import dataclasses
 import threading
 import time
@@ -51,13 +56,16 @@ from ray_tpu._private import events as jev
 from ray_tpu._private.metrics import serve_metrics as jserve_metrics
 from ray_tpu.models import gpt as jgpt
 from ray_tpu.serve.batching import _EngineStream as JaxStream
+from ray_tpu.util import tracing as jtracing
 import ray_tpu_torch.data.llm as tllm
 import ray_tpu_torch.serve.engine as tengine
 from ray_tpu_torch._private import events as tev
 from ray_tpu_torch._private.metrics import serve_metrics as tserve_metrics
 from ray_tpu_torch.data import block as TB
 from ray_tpu_torch.models import gpt as tgpt
-from ray_tpu_torch.serve._stream import _EngineStream
+from ray_tpu_torch.serve.batching import _EngineStream
+from ray_tpu_torch.util import tracing as ttracing
+from torch_threads import one_torch_thread  # noqa: F401
 
 J32 = dataclasses.replace(jgpt.CONFIGS["nano"], dtype=jnp.float32)
 T32 = dataclasses.replace(tgpt.CONFIGS["nano"], dtype=torch.float32)
@@ -80,6 +88,11 @@ def params():
     ref = jax.tree_util.tree_map(lambda t: jnp.asarray(t.numpy()),
                                  tgpt.params_tree(port))
     return {"ref": ref, "port": port}
+
+
+def _ctx(i: int) -> dict:
+    """Request i's wire trace context, the same in both packages."""
+    return {"trace_id": f"{i + 1:032x}", "span_id": f"{i + 1:016x}"}
 
 
 def _prompt(seed: int, n: int) -> np.ndarray:
@@ -121,7 +134,8 @@ class Pkg:
 def _serve(pkg, eng, reqs):
     """Submit every (prompt, max_new, kw) before start, then drain."""
     try:
-        lanes = [eng.submit(p, m, **kw) for p, m, kw in reqs]
+        lanes = [eng.submit(p, m, trace_ctx=_ctx(i), **kw)
+                 for i, (p, m, kw) in enumerate(reqs)]
         eng.start()
         outs = []
         for lane in lanes:
@@ -172,8 +186,9 @@ def sc_handoff(pkg, dep):
     dec = pkg.engine(dep + "-dec", role="decode")
     try:
         pre.start()
-        desc = pre.handoff(_prompt(16, 11), 9, seed=3)
-        lost = pre.handoff(_prompt(17, 6), 7, seed=4, ttl_s=0.05)
+        desc = pre.handoff(_prompt(16, 11), 9, seed=3, trace_ctx=_ctx(0))
+        lost = pre.handoff(_prompt(17, 6), 7, seed=4, ttl_s=0.05,
+                           trace_ctx=_ctx(1))
         deadline = time.time() + 10
         while pre.stats()["handoff"]["leases_reclaimed"] < 1:
             assert time.time() < deadline, "the lease was never swept"
@@ -196,7 +211,8 @@ def sc_handoff(pkg, dep):
 def _serve_prefilled(pkg, eng, descs):
     """Admit every handoff descriptor before start, then drain."""
     try:
-        lanes = [eng.admit_prefilled(d) for d in descs]
+        lanes = [eng.admit_prefilled(d, trace_ctx=_ctx(2 + i))
+                 for i, d in enumerate(descs)]
         eng.start()
         return [pkg.drain(lane) for lane in lanes], eng.stats()
     finally:
@@ -208,7 +224,7 @@ def sc_driver_die(pkg, dep):
     try:
         prompt = _prompt(18, 9)
         eng.inject_fault("driver_die", at_tokens=5)
-        lane = eng.submit(prompt, 16, seed=0)
+        lane = eng.submit(prompt, 16, seed=0, trace_ctx=_ctx(0))
         eng.start()
         got = []
         with pytest.raises(pkg.restart_error):
@@ -217,7 +233,8 @@ def sc_driver_die(pkg, dep):
         eng._thread.join(timeout=10)
         assert eng.supervise() is True
         tail = pkg.drain(eng.submit(prompt, 16, seed=0,
-                                    resume_from=len(got)))
+                                    resume_from=len(got),
+                                    trace_ctx=_ctx(1)))
         return [np.concatenate([np.asarray(got, np.int32), tail])], \
             eng.stats()
     finally:
@@ -291,24 +308,26 @@ _RUNS = {}
 
 def _run(name, params):
     """Run scenario ``name`` through both packages once per module:
-    {"ref"/"port": (events, metric deltas, outputs, stats)}."""
+    {"ref"/"port": (events, metric deltas, outputs, stats, spans)}."""
     if name in _RUNS:
         return _RUNS[name]
     res = {}
     # One deployment for both: the two registries are separate, and
     # ``engine.driver_restart`` carries it.
     dep = f"evp-{name}-{uuid.uuid4().hex[:8]}"
-    for pkg_name, sm, mods in (
-            ("ref", jserve_metrics(), (jengine, jllm, jev)),
-            ("port", tserve_metrics(), (tengine, tllm, tev))):
+    for pkg_name, sm, mods, tracing in (
+            ("ref", jserve_metrics(), (jengine, jllm, jev), jtracing),
+            ("port", tserve_metrics(), (tengine, tllm, tev), ttracing)):
         pkg = Pkg(pkg_name, params[pkg_name])
         before = _metric_values(sm, dep)
         with pytest.MonkeyPatch.context() as mp:
             cap = _capture(mp, *mods)
+            mp.setattr(tracing, "_buffer", collections.deque(maxlen=10_000))
             outs, stats = SCENARIOS[name](pkg, dep)
+            spans = tracing.drain()
         res[pkg_name] = (cap.events,
                          _deltas(sm, dep, before, _metric_values(sm, dep)),
-                         outs, stats)
+                         outs, stats, spans)
     _RUNS[name] = res
     return res
 
@@ -383,6 +402,59 @@ def test_metric_parity(params, name):
         assert stats["attn_kernel_dispatches"] == stats["dispatches"] > 0
     if name == "spec":
         assert stats["attn_kernel_dispatches"] == 0
+
+
+SPAN_KEYS = {"name", "kind", "trace_id", "span_id", "parent_id", "start",
+             "end", "status", "attrs"}
+
+
+def _norm_spans(spans):
+    """Spans without their ids and clock stamps (checked, then
+    dropped); parents named by request index."""
+    parents = {_ctx(i)["span_id"]: i for i in range(8)}
+    out = []
+    for s in spans:
+        assert set(s) == SPAN_KEYS, s
+        assert isinstance(s["start"], float) and s["end"] >= s["start"]
+        i = parents[s["parent_id"]]
+        assert s["trace_id"] == _ctx(i)["trace_id"]
+        out.append((s["name"], s["kind"], s["status"], i, s["attrs"]))
+    return out
+
+
+@pytest.mark.parametrize("name", list(SCENARIOS))
+def test_span_parity(params, name):
+    """The engine's ``engine.admission`` and ``decode.chunk`` spans under
+    each request's ``trace_ctx`` are the reference's: names, order,
+    parents, attributes (``imported`` on a handoff import, ``accepted``
+    on a verify round)."""
+    res = _run(name, params)
+    port, ref = _norm_spans(res["port"][4]), _norm_spans(res["ref"][4])
+    assert port == ref
+    names = [n for n, *_ in port]
+    assert set(names) == {"engine.admission", "decode.chunk"} or (
+        name == "handoff" and "decode.chunk" in names)
+    chunks = [a for n, _, _, _, a in port if n == "decode.chunk"]
+    admissions = [(i, a) for n, _, _, i, a in port
+                  if n == "engine.admission"]
+    assert all(a["deployment"].startswith("evp-") for a in chunks)
+    assert all(("accepted" in a) == (name == "spec") for a in chunks)
+    assert all(1 <= a["tokens"] and 1 <= a["active_slots"] <= KW["slots"]
+               for a in chunks)
+    imported = [i for i, a in admissions if a.get("imported")]
+    assert imported == ([2] if name == "handoff" else [])
+    if name in ("greedy", "spec"):
+        # One admission a live request (greedy's expired request #2 has
+        # none); its chunks' tokens add up to its stream after the first.
+        outs = res["port"][2]
+        live = [i for i, o in enumerate(outs) if not isinstance(o, str)]
+        assert [i for i, _ in admissions] == live
+        for i in live:
+            assert sum(a["tokens"] for n, _, _, j, a in port
+                       if n == "decode.chunk" and j == i) == len(outs[i]) - 1
+    if name == "preempt":
+        # The preempted request is admitted again, under its own context.
+        assert len(admissions) == 3
 
 
 def test_port_ring_replays_captured_sequence(params, tmp_path):

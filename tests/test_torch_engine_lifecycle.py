@@ -39,9 +39,10 @@ from ray_tpu.models import gpt_decode as jgd
 from ray_tpu.serve import request as jrequest
 from ray_tpu.serve.engine import DecodeEngine as JaxEngine
 from ray_tpu_torch.models import gpt as tgpt
-from ray_tpu_torch.serve._stream import RequestDeadlineExceeded
+from ray_tpu_torch.serve.request import RequestDeadlineExceeded
 from ray_tpu_torch.serve.engine import (DecodeEngine, EngineRestartError,
                                         EngineShutdownError)
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 J32 = dataclasses.replace(jgpt.CONFIGS["nano"], dtype=jnp.float32)

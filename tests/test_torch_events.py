@@ -28,6 +28,7 @@ from ray_tpu._private import events as jev
 from ray_tpu._private import metrics as jmetrics
 from ray_tpu_torch._private import events as ev
 from ray_tpu_torch._private import metrics as tmetrics
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

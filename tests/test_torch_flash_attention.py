@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from ray_tpu_torch.ops import flash_attention as fa
+from torch_threads import one_torch_thread  # noqa: F401
 
 # f32: both packages compute the same function in f32 and differ in
 # summation order only (measured ~1e-6 here); 1e-4 is the tolerance of

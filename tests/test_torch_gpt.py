@@ -16,6 +16,7 @@ import torch.nn.functional as F
 
 from ray_tpu.models import gpt as jgpt
 from ray_tpu_torch.models import gpt as tgpt
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

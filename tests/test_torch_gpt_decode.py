@@ -29,6 +29,7 @@ from ray_tpu.models import gpt_decode as jgd
 from ray_tpu_torch._private import prng
 from ray_tpu_torch.models import gpt as tgpt
 from ray_tpu_torch.models import gpt_decode as tgd
+from torch_threads import one_torch_thread  # noqa: F401
 
 PS, SLOTS, N_PAGES, MAX_PAGES, K = 8, 4, 16, 8, 4
 SENT = tgd.PT_SENTINEL

@@ -21,6 +21,7 @@ from ray_tpu.models import gpt_decode as jgd
 from ray_tpu_torch._private import prng
 from ray_tpu_torch.models import gpt as tgpt
 from ray_tpu_torch.models import gpt_decode as tgd
+from torch_threads import one_torch_thread  # noqa: F401
 
 MAX_LEN = 48
 

@@ -43,9 +43,10 @@ from ray_tpu.serve.engine import DecodeEngine as JaxEngine
 from ray_tpu_torch.models import gpt as tgpt
 from ray_tpu_torch.models import gpt_decode as tgd
 from ray_tpu_torch.serve import handoff as tho
-from ray_tpu_torch.serve._stream import (RequestDeadlineExceeded,
-                                         _EngineStream)
+from ray_tpu_torch.serve.batching import _EngineStream
 from ray_tpu_torch.serve.engine import DecodeEngine
+from ray_tpu_torch.serve.request import RequestDeadlineExceeded
+from torch_threads import one_torch_thread  # noqa: F401
 
 J32 = dataclasses.replace(jgpt.CONFIGS["nano"], dtype=jnp.float32)
 T32 = dataclasses.replace(tgpt.CONFIGS["nano"], dtype=torch.float32)

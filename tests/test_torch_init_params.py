@@ -33,6 +33,7 @@ from ray_tpu_torch._private import prng
 from ray_tpu_torch.models import gpt as tgpt
 from ray_tpu_torch.serve import draft as tdraft
 from ray_tpu_torch.serve.engine import DecodeEngine
+from torch_threads import one_torch_thread  # noqa: F401
 
 NANO = jgpt.CONFIGS["nano"]
 TNANO = tgpt.CONFIGS["nano"]

@@ -8,7 +8,8 @@ included) and of ``chip_smoke.py``, and by serving nano requests
 (greedy, seeded temperature > 0, and speculative with the n-gram
 drafter), serving one request with the flight recorder on a temporary
 directory and reading its ring back, handing one request off from a prefill engine to a decode
-engine, running batch inference with a progress log and resuming it
+engine, serving one request through ``@batch(continuous=True)`` with
+tracing on and reading its ``engine.admission`` span back, running batch inference with a progress log and resuming it
 once from the log, taking a nano train step (flash attention, ``dots``
 remat), and serving one request and taking one train step with a nano
 Mixture-of-Experts model, one ResNet-18 forward at inference (through
@@ -36,6 +37,7 @@ import ast
 import os
 import subprocess
 import sys
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "ray_tpu_torch")
@@ -69,7 +71,8 @@ def test_no_jax_or_reference_imports_in_source():
                  "rllib/multi_agent.py", "rllib/dreamerv3.py",
                  "rllib/impala.py", "rllib/appo.py", "data/__init__.py",
                  "data/block.py", "data/llm.py", "_private/events.py",
-                 "_private/metrics.py", "serve/request.py"):
+                 "_private/metrics.py", "serve/request.py",
+                 "serve/batching.py", "util/tracing.py"):
         assert os.path.join(PKG, must) in files, must
     files.append(os.path.join(ROOT, "chip_smoke.py"))
     bad = []
@@ -137,10 +140,13 @@ import tempfile
 import numpy as np
 import torch
 
+# One intra-op thread, as in the test process (tests/torch_threads.py).
+torch.set_num_threads(1)
+
 from ray_tpu_torch._private import events as ev
 from ray_tpu_torch._private.metrics import serve_metrics
 from ray_tpu_torch.models import gpt
-from ray_tpu_torch.serve._stream import _EngineStream
+from ray_tpu_torch.serve.batching import _EngineStream
 from ray_tpu_torch.serve.engine import DecodeEngine
 
 cfg = gpt.CONFIGS["nano"]
@@ -195,6 +201,37 @@ finally:
     dec.shutdown()
 assert out.shape == (6,) and ho["imported"] == 1, (out, ho)
 assert ho["import_fallbacks"] == 0, ho
+# One request through the port's @batch(continuous=True) with tracing on:
+# its engine.admission span parents under the request's span.
+from ray_tpu_torch.serve import batching, request
+from ray_tpu_torch.util import tracing
+
+eng = DecodeEngine(params, cfg, slots=2, chunk=4, max_len=64,
+                   prompt_buckets=(8, 16), page_size=8, device="cpu",
+                   deployment="isolated-batch")
+
+
+class Deployment:
+    @batching.batch(continuous=True, page_size=8)
+    def decode(self, prompt):
+        return eng, {"prompt": prompt, "max_new": 6}
+
+
+tracing.enable()
+tok = request._request_deadline.set(request.make_deadline(120.0))
+try:
+    with tracing.span("request") as root:
+        out = np.concatenate(list(Deployment().decode(
+            np.arange(5, dtype=np.int32))))
+finally:
+    request._request_deadline.reset(tok)
+    tracing.disable()
+    eng.shutdown()
+assert out.shape == (6,), out
+adm = [s for s in tracing.drain() if s["name"] == "engine.admission"]
+assert len(adm) == 1 and adm[0]["parent_id"] == root["span_id"], adm
+assert adm[0]["attrs"]["deployment"] == "isolated-batch", adm
+assert tracing.dropped_total() == 0
 # Batch inference with a progress log: a run left after its first block,
 # then resumed once from the log.
 import shutil

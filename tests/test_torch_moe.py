@@ -24,6 +24,7 @@ from ray_tpu.models import gpt as jgpt
 from ray_tpu.models import moe as jmoe
 from ray_tpu_torch.models import gpt as tgpt
 from ray_tpu_torch.models import moe as tmoe
+from torch_threads import one_torch_thread  # noqa: F401
 
 F32_ATOL = 1e-5
 # bf16: the two frameworks round GELU's inner terms and the expert

@@ -33,8 +33,9 @@ from ray_tpu.serve.engine import DecodeEngine as JaxEngine
 from ray_tpu_torch.models import gpt as tgpt
 from ray_tpu_torch.models import gpt_decode as tgd
 from ray_tpu_torch.models import moe as tmoe
-from ray_tpu_torch.serve._stream import _EngineStream
+from ray_tpu_torch.serve.batching import _EngineStream
 from ray_tpu_torch.serve.engine import DecodeEngine
+from torch_threads import one_torch_thread  # noqa: F401
 
 MOE = dict(n_experts=4, expert_top_k=2)
 KW = dict(slots=12, chunk=4, max_len=64, prompt_buckets=(8, 16),

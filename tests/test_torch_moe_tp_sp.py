@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from ray_tpu_torch.models import gpt as tgpt
 from ray_tpu_torch.models import moe as tmoe
 from ray_tpu_torch.parallel import mesh as tmesh
+from torch_threads import one_torch_thread  # noqa: F401
 
 LOSS_TOL = 1e-5
 LR = tgpt.ADAMW_DEFAULTS["lr"]

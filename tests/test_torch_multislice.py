@@ -15,6 +15,7 @@ itself runs two slices of one rank.
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 #: bf16 forward/backward of the two packages on the same weights and
 #: tokens: the losses part at the bf16 rounding (3.9e-5 seen here).

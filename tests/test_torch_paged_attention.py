@@ -18,6 +18,7 @@ import torch
 
 from ray_tpu_torch.models import gpt_decode as tgd
 from ray_tpu_torch.ops import paged_attention as pa
+from torch_threads import one_torch_thread  # noqa: F401
 
 H, HD, PS, N_PAGES, MAX_PAGES, B = 2, 32, 8, 16, 4, 3
 PT = np.full((B, MAX_PAGES), tgd.PT_SENTINEL, np.int32)

@@ -25,6 +25,7 @@ from ray_tpu_torch._private import tree as ttree
 from ray_tpu_torch.models import gpt as tgpt
 from ray_tpu_torch.parallel import mesh as tmesh
 from ray_tpu_torch.parallel import sharding as tshr
+from torch_threads import one_torch_thread  # noqa: F401
 
 MESHES = [{"fsdp": 8}, {"fsdp": 4, "tp": 2}, {"dp": 2, "fsdp": 2, "tp": 2},
           {"tp": 4}, {"dp": 8}]

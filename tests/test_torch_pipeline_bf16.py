@@ -40,6 +40,7 @@ import torch
 
 from ray_tpu_torch.models import gpt as tgpt
 from ray_tpu_torch.parallel import mesh as tmesh
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, S = 8, 32
 DRAWS = 4

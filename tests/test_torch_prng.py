@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from ray_tpu_torch._private import prng
+from torch_threads import one_torch_thread  # noqa: F401
 
 SEEDS = [0, 1, 42, 2 ** 31 - 1, 2 ** 32 + 5, -1, -12345]
 

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from ray_tpu.models import resnet as jres
 from ray_tpu_torch.models import resnet as tres
+from torch_threads import one_torch_thread  # noqa: F401
 
 # f32 logits: the convolutions sum in another order in each framework;
 # |logits| < 3 here, and the largest difference measured was 1.9e-6.
@@ -55,18 +56,6 @@ def _port_numpy(tree):
 def _images(seed=0, b=2, hw=64):
     return (np.random.default_rng(seed).standard_normal((b, hw, hw, 3))
             * 2 + 0.5).astype(np.float32)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """The port's draw runs hundreds of small f64 ops a tensor; beside
-    other test processes, an intra-op thread pool per op oversubscribes
-    the CPU (one suite run spent 300 s in a draw that takes 0.3 s
-    alone)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -21,6 +21,7 @@ import torch
 from ray_tpu_torch.models import gpt as tgpt
 from ray_tpu_torch.ops import ring_attention as tra
 from ray_tpu_torch.parallel import mesh as tmesh
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, S, H, HD = 2, 64, 4, 16
 # f32: against the port's own einsum attention the same arithmetic in

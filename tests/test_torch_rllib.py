@@ -36,6 +36,7 @@ from ray_tpu_torch.rllib import conv_module as pconv
 from ray_tpu_torch.rllib import rl_module as pmod
 from rllib_parity import (METRIC_RTOL, STATE_RTOL, metric_err, ref_state,
                           tree_err, with_adam_state)
+from torch_threads import one_torch_thread  # noqa: F401
 
 FWD_RTOL = 1e-6
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -36,6 +36,7 @@ from ray_tpu_torch.rllib.rl_module import params_to_torch
 from rllib_parity import METRIC_RTOL, STATE_RTOL, adam_state, metric_err, \
     tree_err
 from test_rllib_dreamer import _CounterEnv, _Drive1D
+from torch_threads import one_torch_thread  # noqa: F401
 
 #: symlog/symexp: units in the last place between the packages.
 SYM_ULPS = 2

@@ -23,6 +23,7 @@ from ray_tpu_torch import rllib as P
 from ray_tpu_torch.rllib import impala as pimp
 from rllib_parity import METRIC_RTOL, STATE_RTOL, metric_err, ref_state, \
     tree_err
+from torch_threads import one_torch_thread  # noqa: F401
 
 #: The aggregator's batch, relative to max(|value|, 1) (both packages
 #: compute it in the same numpy).

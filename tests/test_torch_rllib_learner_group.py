@@ -21,6 +21,7 @@ from ray_tpu_torch import rllib as P
 from ray_tpu_torch.rllib.learner import mean_state
 from rllib_parity import (METRIC_RTOL, STATE_RTOL, ref_state, tree_err,
                           with_adam_state)
+from torch_threads import one_torch_thread  # noqa: F401
 
 KW = dict(minibatch_size=32, num_epochs=2)
 

@@ -21,6 +21,7 @@ from rllib_parity import METRIC_RTOL, STATE_RTOL, metric_err, ref_state, \
     tree_err
 from test_rllib_multi_agent import (CooperativeCorridor, IdleFrameEnv,
                                     ParallelPairEnv, TurnBasedEnv)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _specs(mod, env_cls, mapping=None):

@@ -24,6 +24,7 @@ from ray_tpu_torch._private import prng
 from ray_tpu_torch.models import gpt as tgpt
 from ray_tpu_torch.models import gpt_decode as tgd
 from ray_tpu_torch.serve import draft as tdraft
+from torch_threads import one_torch_thread  # noqa: F401
 
 K = 4
 SLOTS = 3

@@ -37,6 +37,7 @@ from ray_tpu_torch._private import prng
 from ray_tpu_torch._private import tp as ttp
 from ray_tpu_torch.models import gpt as tgpt
 from ray_tpu_torch.models import gpt_decode as tgd
+from torch_threads import one_torch_thread  # noqa: F401
 
 # Four heads, so that tp=4 divides them; otherwise nano.
 J4 = dataclasses.replace(jgpt.CONFIGS["nano"], dtype=jnp.float32, n_head=4)

@@ -20,6 +20,7 @@ import torch
 
 from ray_tpu.models import gpt as jgpt
 from ray_tpu_torch.models import gpt as tgpt
+from torch_threads import one_torch_thread  # noqa: F401
 
 # f32: the packages differ in f32 summation order only; losses of ~6.3
 # agree to ~1e-6, gradients to ~1e-6 of their largest entry.

@@ -25,6 +25,7 @@ import torch
 
 from ray_tpu_torch.models import gpt as tgpt
 from ray_tpu_torch.parallel import mesh as tmesh
+from torch_threads import one_torch_thread  # noqa: F401
 
 LOSS_TOL = 1e-5
 LR = tgpt.ADAMW_DEFAULTS["lr"]
