@@ -44,6 +44,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
    logits have no bf16 near-tie (``TIE_ERRS``); then the same requests
    with 32 new tokens on an int8 pool, and at f32 on fp and int8 pools,
    where kernel and gather engines must agree stream for stream; then a profiled serve window;
+5b. the core runtime (``runtime_phase``, ``ray_tpu_torch.init``): the
+   node's ``GPU`` count equals the card count and it carries the
+   ``accelerator_type:`` label; the object codec that loaded (native or
+   Python) and ``df /dev/shm`` are printed; GPT-2 small's bf16 weights go
+   into the store (one object when ``/dev/shm`` holds two copies, else
+   one a tensor) and read back bit for bit, with put/get MB/s; an actor
+   class defined in this script (:class:`ServeHost`, shipped by value
+   through the vendored cloudpickle) takes ``num_gpus=1``, stages the
+   weights from their ref on the card with ``device_put_shm`` and serves
+   the 12 requests through K1 engines at phase 5's settings, twice (the
+   second profiled): every stream equal to phase 5's K1 streams (bf16
+   near-ties as ``compare`` allows), K1 launched ``n_layer * chunk``
+   times a dispatch by its wrapper's count and by the profiler's kernel
+   events in the actor's process, and ``attn_kernel_dispatches`` equal
+   to the dispatches (those launches join K1's record on the kernels
+   line); the actor's start time and its TTFT/TPOT beside phase 5's;
+   then a ``num_gpus=1`` task pending while the actor holds the card,
+   run after ``kill`` on a CUDA tensor the driver put, with a checksum
+   equal to the driver's;
 6. sampling, the flat pool and speculative decoding (after the threefry
    PRNG was held on the card right after phase 3: split, 32-bit draws,
    uniform and normal bit-equal to the CPU's for lanes from seeds 0, 1,
@@ -4738,6 +4757,258 @@ def tp_phase(params, cfg, reqs, greedy, reqs32, greedy8, f32_args,
     return [recs["fp"], recs["int8"]]
 
 
+# ---- the core runtime: the engine in an actor that holds the card
+RUNTIME_CPUS = 4
+#: How long a ``num_gpus=1`` task must stay pending while the actor holds
+#: the only card.
+RUNTIME_PENDING_S = 2.0
+#: The weights go into the store as one object when ``/dev/shm`` has room
+#: for this many copies of them, else as one object per tensor.
+RUNTIME_SHM_COPIES = 2
+
+
+def process_age_s() -> float:
+    """Seconds since this process started (``/proc/self/stat``'s start
+    time against ``/proc/uptime``)."""
+    import os
+
+    with open("/proc/self/stat") as f:
+        start = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/uptime") as f:
+        up = float(f.read().split()[0])
+    return up - start / os.sysconf("SC_CLK_TCK")
+
+
+class ServeHost:
+    """The runtime phase's engine actor. :func:`runtime_phase` makes it a
+    remote class holding the card (``num_gpus=1``); in its worker process
+    it takes the weights from the object store (one object, or a dict of
+    one ref per tensor), stages them on the card with
+    ``device_put_shm`` and serves through :func:`serve` on K1 engines.
+    It is defined in this script, which runs as ``__main__``, so the
+    runtime ships it by value through the port's vendored cloudpickle
+    (the card's machine has no cloudpickle). Its process must see the
+    card: there is no CPU fallback."""
+
+    def __init__(self, weights, cfg):
+        import time
+
+        age = process_age_s()
+        import torch
+
+        t0 = time.perf_counter()
+        if not torch.cuda.is_available():
+            raise RuntimeError("the actor's process sees no CUDA device")
+        torch.cuda.init()
+        t1 = time.perf_counter()
+        import ray_tpu_torch as rt
+        from ray_tpu_torch.utils.device import device_put_shm, transfer_stats
+
+        if all(isinstance(v, rt.ObjectRef) for v in weights.values()):
+            weights = dict(zip(weights, rt.get(list(weights.values()))))
+        t2 = time.perf_counter()
+        transfer_stats(reset=True)
+        self.params = device_put_shm(weights)
+        t3 = time.perf_counter()
+        self.cfg = cfg
+        self.start = {"process_age_s": age, "cuda_init_s": t1 - t0,
+                      "resolve_s": t2 - t1,
+                      "stage_s": t3 - t2, "staged": transfer_stats()}
+
+    def info(self):
+        import os
+
+        import torch
+
+        return {"pid": os.getpid(), "kind": torch.cuda.get_device_name(0),
+                "count": torch.cuda.device_count(),
+                "devices": sorted({str(p.device)
+                                   for p in self.params.values()}),
+                **self.start}
+
+    def serve(self, reqs, profiled=False):
+        """The 12 requests through one K1 engine at the engine phase's
+        settings; K1's launches from its wrapper's count (zeroed just
+        before) and, with ``profiled``, from the profiler's kernel
+        events."""
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        from ray_tpu_torch.ops import paged_attention as pa
+
+        dev = torch.device("cuda")
+        k1_events = None
+        pa.launches = 0
+        if profiled:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                toks, ttft, tpot, wall, stats = serve(
+                    self.params, self.cfg, reqs, device=dev,
+                    attn_kernel="cuda")
+            k1_events = sum(count for _, key, count in device_rows(prof)[1]
+                            if re.search("paged_attention", key))
+        else:
+            toks, ttft, tpot, wall, stats = serve(
+                self.params, self.cfg, reqs, device=dev,
+                attn_kernel="cuda")
+        return {"toks": toks, "ttft": ttft, "tpot": tpot, "wall": wall,
+                "launches": pa.launches, "k1_events": k1_events,
+                "dispatches": stats["dispatches"],
+                "attn_kernel_dispatches": stats["attn_kernel_dispatches"],
+                "completed": stats["completed"]}
+
+
+def card_checksum(t):
+    """The ``num_gpus=1`` task: a tensor the driver put from the card
+    arrives on the host; it goes back to the card here, and its bits are
+    summed there."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the task's process sees no CUDA device")
+    x = t.to("cuda")
+    return {"arrived_on": str(t.device), "dtype": str(t.dtype),
+            "sum": int(x.view(torch.int32).long().sum()),
+            "process_age_s": process_age_s()}
+
+
+def runtime_phase(params, cfg, reqs, toks, ttft, tpot, card):
+    """The port's core runtime on the card (``ray_tpu_torch.init``): the
+    node's resources; GPT-2 small's bf16 weights through the store; the
+    engine inside an actor that holds the card (:class:`ServeHost`),
+    serving the 12 requests through K1 with streams equal to the
+    in-process engine's ``toks`` (near-ties as :func:`compare` allows);
+    a ``num_gpus=1`` task pending while the actor holds the card, run
+    once it is killed, on a CUDA tensor the driver put. Returns K1's
+    launches inside the actor (both serves, wrapper counts)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import _native
+
+    log(f"runtime [{card}]: object codec {_native.which()}")
+    df = subprocess.run(["df", "-B1", "/dev/shm"], capture_output=True,
+                        text=True)
+    log("runtime: df /dev/shm:\n" + df.stdout.strip())
+    rt.init(num_cpus=RUNTIME_CPUS)
+    actor = None
+    try:
+        res = rt.cluster_resources()
+        labels = {k: v for k, v in res.items()
+                  if k.startswith("accelerator_type:")}
+        log(f"runtime: cluster resources {res}")
+        if res.get("GPU") != torch.cuda.device_count() or not labels:
+            raise AssertionError(
+                f"runtime: GPU {res.get('GPU')} (cards: "
+                f"{torch.cuda.device_count()}), labels {labels}")
+
+        # The weights through the store, read back bit for bit.
+        nbytes = sum(p.numel() * p.element_size() for p in params.values())
+        one = shutil.disk_usage("/dev/shm").free >= \
+            RUNTIME_SHM_COPIES * nbytes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = rt.put(params) if one else {k: rt.put(v)
+                                          for k, v in params.items()}
+        put_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = rt.get(ref) if one else dict(zip(ref, rt.get(
+            list(ref.values()))))
+        get_s = time.perf_counter() - t0
+        if back.keys() != params.keys() or not all(
+                back[k].device.type == "cpu"
+                and torch.equal(back[k], params[k].cpu()) for k in params):
+            raise AssertionError("runtime: the weights read back from the "
+                                 "store differ from the card's")
+        del back
+        log(f"runtime [{card}]: GPT-2 small bf16 weights, {nbytes} B, "
+            f"{'one object' if one else f'{len(params)} objects, one a tensor'}"
+            f": put {put_s:.4f} s = {nbytes / put_s / 1e6:.1f} MB/s (card "
+            f"to host to /dev/shm), get {get_s:.4f} s = "
+            f"{nbytes / get_s / 1e6:.1f} MB/s (a copy out of the segment)")
+
+        # The engine in an actor that holds the card.
+        host_cls = rt.remote(num_gpus=1)(ServeHost)
+        t0 = time.perf_counter()
+        actor = host_cls.remote(ref, cfg)
+        info = rt.get(actor.info.remote(), timeout=300)
+        start_s = time.perf_counter() - t0
+        log(f"runtime: actor started in {start_s:.3f} s (worker pid "
+            f"{info['pid']}, {info['kind']}, {info['count']} card(s); its "
+            f"process was {info['process_age_s']:.3f} s old when __init__ "
+            f"began (spawn, imports, registration, the weights' "
+            f"deserialization); CUDA "
+            f"init {info['cuda_init_s']:.3f} s, weights resolved "
+            f"{info['resolve_s']:.3f} s, staged on {info['devices']} in "
+            f"{info['stage_s']:.3f} s = "
+            f"{info['staged']['gib_per_s']:.3f} GiB/s)")
+        if info["devices"] != ["cuda:0"]:
+            raise AssertionError(f"runtime: weights on {info['devices']}")
+        rt.get(actor.serve.remote(reqs[:2]), timeout=300)    # warm-up
+        runs = [rt.get(actor.serve.remote(reqs, profiled=p), timeout=600)
+                for p in (False, True)]
+        launches = 0
+        for label, run in zip(("timed", "profiled"), runs):
+            got = [np.asarray(t) for t in run["toks"]]
+            check_streams(f"runtime actor {label}", got, reqs,
+                          cfg.vocab_size)
+            want = cfg.n_layer * 8 * run["dispatches"]
+            log(f"runtime actor {label}: {run['completed']} streams, "
+                f"dispatches {run['dispatches']}, attn_kernel_dispatches "
+                f"{run['attn_kernel_dispatches']}, K1 launches "
+                f"{run['launches']} (wrapper) / {run['k1_events']} "
+                f"(profiler) (want n_layer*chunk*dispatches={want})")
+            if run["completed"] != len(reqs) or run["launches"] != want \
+                    or want == 0 or run["attn_kernel_dispatches"] != \
+                    run["dispatches"] or (run["k1_events"] is not None
+                                          and run["k1_events"] != want):
+                raise AssertionError(f"runtime actor {label}: K1 did not "
+                                     f"run on every decode step")
+            compare(f"runtime actor {label}", got, toks, "bf16",
+                    what="actor vs in-process engine",
+                    model=(params, cfg, reqs))
+            launches += run["launches"]
+        timed = runs[0]
+        log(f"runtime actor [{card}]: TTFT p50 {p50(timed['ttft']) * 1e3:.3f}"
+            f" ms (in-process engine {p50(ttft) * 1e3:.3f} ms), TPOT p50 "
+            f"{p50(timed['tpot']) * 1e3:.3f} ms (in-process "
+            f"{p50(tpot) * 1e3:.3f} ms), wall {timed['wall']:.4f} s")
+        log("runtime actor per request (ms): TTFT "
+            + str([round(x * 1e3, 3) for x in timed["ttft"]])
+            + " vs in-process " + str([round(x * 1e3, 3) for x in ttft])
+            + "; TPOT " + str([round(x * 1e3, 3) for x in timed["tpot"]])
+            + " vs in-process " + str([round(x * 1e3, 3) for x in tpot]))
+
+        # A num_gpus=1 task waits for the card, then gets a CUDA tensor.
+        x = torch.randn(1 << 20, device="cuda")
+        want = int(x.view(torch.int32).long().sum())
+        task = rt.remote(num_gpus=1)(card_checksum).remote(rt.put(x))
+        ready, _ = rt.wait([task], timeout=RUNTIME_PENDING_S)
+        if ready:
+            raise AssertionError("runtime: a num_gpus=1 task ran while the "
+                                 "actor held the only card")
+        t0 = time.perf_counter()
+        rt.kill(actor)
+        actor = None
+        got = rt.get(task, timeout=120)
+        age = got.pop("process_age_s")
+        log(f"runtime: the num_gpus=1 task stayed pending "
+            f"{RUNTIME_PENDING_S} s while the actor held the card, ran "
+            f"{time.perf_counter() - t0:.3f} s after the kill in a process "
+            f"{age:.3f} s old at its end: {got} (driver's sum {want})")
+        if got != {"arrived_on": "cpu", "dtype": "torch.float32",
+                   "sum": want}:
+            raise AssertionError(f"runtime: checksum task {got}, want "
+                                 f"{want}")
+        return launches
+    finally:
+        if actor is not None:
+            rt.kill(actor)
+        rt.shutdown()
+
+
 def np_equal(a, b):
     return a.shape == b.shape and bool((a == b).all())
 
@@ -4901,6 +5172,10 @@ def main() -> int:
             f"{p50(tpot32) * 1e3:.3f} ms")
 
     profile_phase(params, cfg, reqs32[:6], card)
+
+    # ---- 5b. the core runtime: the engine in an actor on the card
+    records[0]["launches"] += runtime_phase(params, cfg, reqs, toks, ttft,
+                                            tpot, card)
 
     # ---- 6. sampling at T > 0, the flat pool, speculative decoding
     sampling_phase(params, cfg, reqs, nano_args, card)

@@ -1,5 +1,5 @@
-"""ray_tpu_torch — the PyTorch/CUDA port of ray_tpu's serving decode path
-and GPT training step.
+"""ray_tpu_torch — the PyTorch/CUDA port of ray_tpu: its core runtime,
+serving decode path, training and libraries.
 
 A package of its own beside ``ray_tpu`` (the JAX reference, which it never
 imports). Its layout mirrors the reference so each module's counterpart is
@@ -45,9 +45,61 @@ found under the same name:
   :mod:`ray_tpu_torch.train` and :mod:`ray_tpu_torch.rllib` — MoE,
   ResNet, sharded training and RL.
 
-Not ported: what stands on the reference's runtime (actors, the head,
-the serve controller, replicas and proxy).
+The core runtime (``api.py``, ``core/worker.py``, ``_private/head.py``
+and the object plane) schedules Python work across processes on one
+node, as ``ray_tpu``'s does: ``import ray_tpu_torch as rt; rt.init();
+@rt.remote ...`` gives tasks, actors, ``put``/``get``/``wait``, ``kill``,
+placement groups, ``state``, ``timeline``, ``metrics_text`` and the
+dashboard. ``GPU`` is the accelerator resource (``init(num_gpus=)``, the
+``num_gpus`` option). Torch tensors travel through the shared-memory
+store (``_private/serialization.py``: CUDA tensors arrive as CPU tensors,
+and ``utils/device.device_put_shm`` stages them on the card); functions
+and classes ship by value through the vendored
+:mod:`ray_tpu_torch.cloudpickle`.
 
-Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
-without a card and without that argument they raise.
+Not ported yet (ROADMAP Queue 1): what spans hosts or stands on the
+runtime's libraries — multi-node clusters, the autoscaler and the CLI
+(``address="auto"``), Train, the serve front (controller, replicas,
+proxy), Data's ``Dataset``, Tune, ``dag.py``/``workflow/`` (``.bind()``)
+and the ``util`` helpers built on actors.
+
+Importing ``ray_tpu_torch`` imports neither torch nor numpy: the runtime
+stays light, and torch loads with the numeric subpackages or with the
+first value that holds a tensor.
+
+Entry points of the numeric subpackages run on ``cuda`` unless the caller
+passes ``device="cpu"``; without a card and without that argument they
+raise.
 """
+from .api import (  # noqa: F401
+    ActorClass,
+    ActorHandle,
+    NodeAffinitySchedulingStrategy,
+    NodeLabelSchedulingStrategy,
+    PlacementGroup,
+    PlacementGroupSchedulingStrategy,
+    available_resources,
+    cluster_resources,
+    dashboard_url,
+    get,
+    get_actor,
+    init,
+    is_initialized,
+    kill,
+    list_actors,
+    method,
+    metrics_text,
+    nodes,
+    placement_group,
+    put,
+    remote,
+    remove_placement_group,
+    shutdown,
+    state,
+    timeline,
+    wait,
+)
+from .core.worker import ObjectRef, ObjectRefGenerator  # noqa: F401
+from . import exceptions  # noqa: F401
+
+__version__ = "0.1.0"

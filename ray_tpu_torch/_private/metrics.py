@@ -1,19 +1,21 @@
-"""The serve metrics: typed instruments in a process-local registry, and
-the serve data plane's instrument set, under the reference's names,
-descriptions, label keys and histogram bounds
-(``ray_tpu/_private/metrics.py``).
+"""The metrics plane: typed instruments in a process-local registry, the
+runtime's snapshot merge and Prometheus exposition, the core and serve
+instrument sets, under the reference's names, descriptions, label keys
+and histogram bounds (``ray_tpu/_private/metrics.py``).
 
-A copy of the reference's ``_labels``, ``Counter``, ``Gauge``,
-``Histogram`` (``timer``, ``observe``, ``collect``), ``MetricsRegistry``,
-``global_registry`` and ``serve_metrics`` (``:410-590``), and of the
-naming lint ``lint_metric_name`` (the reference loads it from
-``tools/rtlint/metrics_names.py``; the port keeps its own copy). The
-registry warns once per name on a lint problem, and raises instead
-under ``RT_METRICS_STRICT=1``, as the reference's does.
+A copy of the reference's module but for ``EMA`` (the autoscaler's) and
+the naming lint ``lint_metric_name``, which the reference loads from
+``tools/rtlint/metrics_names.py`` and the port keeps as its own copy.
+The registry warns once per name on a lint problem, and raises instead
+under ``RT_METRICS_STRICT=1``, as the reference's does. Every worker
+ships :meth:`MetricsRegistry.snapshot` to the head with its task events;
+the head merges them (:func:`merge_snapshots`) and serves
+:func:`render_prometheus` at the dashboard's ``/metrics``. The exposition
+prefix stays ``ray_tpu``, so a scrape reads the same series names from
+either package.
 
-The port's registry is its own: instruments the port's engine touches
-never reach the reference's registry, and the other way round. The
-head's snapshot merge and Prometheus exposition stay with the runtime.
+The port's registry is its own: instruments the port touches never
+reach the reference's registry, and the other way round.
 
 Conventions follow Prometheus: ``_total`` on counters, seconds for
 durations, labels as a sorted tuple of ``(key, value)`` pairs.
@@ -26,7 +28,7 @@ import re
 import threading
 import time
 import warnings
-from typing import Dict, Iterable, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 LabelPairs = Tuple[Tuple[str, str], ...]
 
@@ -180,6 +182,19 @@ class MetricsRegistry:
             return self._instruments.get(name)
 
 
+    def snapshot(self) -> dict:
+        """Wire-format snapshot: shipped from workers to the head."""
+        out = {}
+        with self._lock:
+            instruments = list(self._instruments.values())
+        for inst in instruments:
+            out[inst.name] = {
+                "kind": inst.kind, "description": inst.description,
+                "bounds": list(getattr(inst, "bounds", ())),
+                "values": [(list(k), v) for k, v in inst.collect()],
+            }
+        return out
+
 _global: Optional[MetricsRegistry] = None
 _global_lock = threading.Lock()
 
@@ -193,6 +208,139 @@ def global_registry() -> MetricsRegistry:
 
 
 # ------------------------------------------------------------- serve set
+def merge_snapshots(snaps: List[dict]) -> dict:
+    """Head-side merge of per-process snapshots (sum counters/histograms,
+    last-writer-wins gauges).
+
+    Two processes reporting DIFFERENT ``bounds`` for the same histogram
+    name (a rolling deploy changed the buckets, or two libraries collide
+    on a name) cannot be element-wise summed — the old code's ``zip``
+    silently truncated the longer list, corrupting every count. Such
+    snapshots now merge into separate sub-series kept under the entry's
+    ``bounds_conflict`` list (one per distinct bounds tuple) and render
+    with a ``bounds_conflict`` label so no sample is lost or miscounted."""
+    merged: dict = {}
+    for snap in snaps:
+        for name, data in snap.items():
+            ent = merged.setdefault(name, {
+                "kind": data["kind"], "description": data["description"],
+                "bounds": data.get("bounds", []), "values": {}})
+            values = ent["values"]
+            if data["kind"] == "histogram" and \
+                    list(data.get("bounds", [])) != list(ent["bounds"]):
+                sub = None
+                for c in ent.setdefault("bounds_conflict", []):
+                    if c["bounds"] == list(data.get("bounds", [])):
+                        sub = c
+                        break
+                if sub is None:
+                    sub = {"bounds": list(data.get("bounds", [])),
+                           "values": {}}
+                    ent["bounds_conflict"].append(sub)
+                values = sub["values"]
+            for key_list, v in data["values"]:
+                key = tuple(tuple(p) for p in key_list)
+                if data["kind"] == "counter":
+                    values[key] = values.get(key, 0.0) + v
+                elif data["kind"] == "gauge":
+                    values[key] = v
+                else:  # histogram: element-wise sum (bounds match here)
+                    cur = values.get(key)
+                    values[key] = (
+                        [a + b for a, b in zip(cur, v)] if cur else list(v))
+    return merged
+
+
+def escape_label_value(v) -> str:
+    """Prometheus exposition escaping for a label value: backslash,
+    double-quote, and line-feed must be escaped or the line is invalid."""
+    return (str(v).replace("\\", "\\\\").replace('"', '\\"')
+            .replace("\n", "\\n"))
+
+
+def _escape_help(s: str) -> str:
+    """HELP text escaping (backslash and line-feed per the spec)."""
+    return s.replace("\\", "\\\\").replace("\n", "\\n")
+
+
+def render_prometheus(merged: dict, prefix: str = "ray_tpu") -> str:
+    """Merged snapshot → prometheus text exposition format."""
+    lines: List[str] = []
+
+    def fmt_labels(key: LabelPairs, extra: str = "") -> str:
+        parts = [f'{k}="{escape_label_value(v)}"' for k, v in key]
+        if extra:
+            parts.append(extra)
+        return "{" + ",".join(parts) + "}" if parts else ""
+
+    def render_hist(full, key, bounds, v, extra_pair=None):
+        base_key = key if extra_pair is None else key + (extra_pair,)
+        cum = 0
+        for i, b in enumerate(bounds):
+            cum += v[i]
+            # No backslash inside the f-string expression:
+            # pre-3.12 interpreters reject it at compile time.
+            le = f'le="{b}"'
+            lines.append(f"{full}_bucket{fmt_labels(base_key, le)} {cum}")
+        cum += v[len(bounds)]
+        le_inf = 'le="+Inf"'
+        lines.append(f"{full}_bucket{fmt_labels(base_key, le_inf)} {cum}")
+        lines.append(f"{full}_sum{fmt_labels(base_key)} {v[-2]}")
+        lines.append(f"{full}_count{fmt_labels(base_key)} {v[-1]}")
+
+    for name in sorted(merged):
+        ent = merged[name]
+        full = f"{prefix}_{name}"
+        if ent["description"]:
+            lines.append(
+                f"# HELP {full} {_escape_help(ent['description'])}")
+        lines.append(f"# TYPE {full} {ent['kind']}")
+        for key, v in sorted(ent["values"].items()):
+            if ent["kind"] in ("counter", "gauge"):
+                lines.append(f"{full}{fmt_labels(key)} {v}")
+            else:
+                render_hist(full, key, ent["bounds"], v)
+        # Series whose processes reported different bucket bounds render
+        # separately, marked by a bounds_conflict label (summing them
+        # would corrupt every count).
+        for i, sub in enumerate(ent.get("bounds_conflict", [])):
+            pair = ("bounds_conflict", str(i + 1))
+            for key, v in sorted(sub["values"].items()):
+                render_hist(full, key, sub["bounds"], v, extra_pair=pair)
+    return "\n".join(lines) + "\n"
+
+
+# ---------------------------------------------------------------- core set
+# Instantiated lazily so importing this module stays cheap.
+_core: dict = {}
+
+
+def core_metrics() -> dict:
+    if not _core:
+        _core.update(
+            tasks_finished=Counter(
+                "tasks_finished_total", "Tasks executed on this worker"),
+            task_duration=Histogram(
+                "task_duration_seconds", "Task execution wall time"),
+            objects_stored=Gauge(
+                "object_store_objects", "Objects in the memory store"),
+            shm_bytes=Gauge(
+                "object_store_shm_bytes", "Bytes in shared-memory store"),
+            actors_alive=Gauge("actors_alive", "Live actors (head view)"),
+            workers_alive=Gauge("workers_alive", "Live workers (head view)"),
+            leases_granted=Counter(
+                "leases_granted_total", "Worker leases granted by the head"),
+            objects_recovered=Counter(
+                "objects_recovered_total",
+                "Lost objects rebuilt via lineage re-execution"),
+            oom_workers_killed=Counter(
+                "oom_workers_killed_total",
+                "Workers killed by the memory monitor under host "
+                "memory pressure"),
+        )
+    return _core
+
+
 # Label conventions: ``deployment`` names the deployment (an engine's
 # ``deployment``); ``where`` names the layer that dropped or degraded the
 # request (the port's engine says ``engine``).
@@ -373,3 +521,85 @@ def serve_metrics() -> dict:
                 "| cooldown | stabilizing | idle_wait)"),
         )
         return _serve
+
+
+def merged_to_wire(merged: dict) -> dict:
+    """Merged snapshot → RPC-safe form (tuple label keys become lists,
+    mirroring ``MetricsRegistry.snapshot``'s wire format)."""
+    out = {}
+    for name, ent in merged.items():
+        w = {"kind": ent["kind"], "description": ent["description"],
+             "bounds": list(ent["bounds"]),
+             "values": [(list(list(p) for p in k), v)
+                        for k, v in ent["values"].items()]}
+        if ent.get("bounds_conflict"):
+            w["bounds_conflict"] = [
+                {"bounds": list(sub["bounds"]),
+                 "values": [(list(list(p) for p in k), v)
+                            for k, v in sub["values"].items()]}
+                for sub in ent["bounds_conflict"]]
+        out[name] = w
+    return out
+
+
+def quantile_from_buckets(bounds: Sequence[float], counts: Sequence[float],
+                          q: float) -> Optional[float]:
+    """Quantile estimate from cumulative-free bucket counts (the wire
+    layout: one count per bound plus the +Inf overflow). Linear
+    interpolation inside the winning bucket, like PromQL's
+    ``histogram_quantile``; the +Inf bucket clamps to the last bound."""
+    total = sum(counts)
+    if total <= 0:
+        return None
+    target = q * total
+    cum = 0.0
+    lower = 0.0
+    for i, b in enumerate(bounds):
+        prev = cum
+        cum += counts[i]
+        if cum >= target:
+            frac = (target - prev) / max(counts[i], 1e-12)
+            return lower + (b - lower) * min(max(frac, 0.0), 1.0)
+        lower = b
+    return float(bounds[-1]) if bounds else None
+
+
+def histogram_summary(wire: dict, metric: str,
+                      label_filter: Optional[Dict[str, str]] = None,
+                      qs: Sequence[float] = (0.5, 0.95, 0.99)
+                      ) -> Optional[dict]:
+    """p50/p95/p99 (+count/sum) for one histogram in a wire-format merged
+    snapshot, summing every label set matching ``label_filter``. Returns
+    None when the metric is absent or has no observations."""
+    ent = wire.get(metric)
+    if ent is None or ent.get("kind") != "histogram":
+        return None
+    want = set((label_filter or {}).items())
+    bounds = ent.get("bounds", [])
+    agg: Optional[List[float]] = None
+    for key_list, v in ent.get("values", []):
+        if not want <= {(p[0], p[1]) for p in key_list}:
+            continue
+        agg = [a + b for a, b in zip(agg, v)] if agg else list(v)
+    if agg is None or agg[-1] <= 0:
+        return None
+    buckets = agg[:len(bounds) + 1]
+    out = {f"p{int(q * 100)}_s": quantile_from_buckets(bounds, buckets, q)
+           for q in qs}
+    out["count"] = agg[-1]
+    out["mean_s"] = agg[-2] / agg[-1]
+    # Differing-bounds sub-series cannot join one quantile computation;
+    # surface what the quantiles above do NOT cover instead of silently
+    # dropping those observations from the summary.
+    excluded = 0
+    for sub in ent.get("bounds_conflict", []):
+        for key_list, v in sub.get("values", []):
+            if want <= {(p[0], p[1]) for p in key_list}:
+                excluded += v[-1]
+    if excluded:
+        out["excluded_bounds_conflict_count"] = excluded
+    return out
+
+
+def now() -> float:
+    return time.time()

@@ -3,9 +3,9 @@ typed overload and expiry errors, the request-scoped context a serving
 layer sets around user code, the wire keys that carry it, and the
 picklable HTTP request/response snapshot handed to ingress code.
 
-The port's copy of ``ray_tpu/serve/request.py``. The reference bases its
-errors on ``ray_tpu.exceptions.RayTpuError``; the port imports nothing of
-the JAX package, so they share :class:`ServeError` here instead.
+The port's copy of ``ray_tpu/serve/request.py``: its errors stand on the
+port's own :class:`~ray_tpu_torch.exceptions.RayTpuError`, as the
+reference's stand on ``ray_tpu.exceptions.RayTpuError``.
 
 Deadlines are **absolute wall-clock timestamps** (``time.time()``), like
 gRPC deadlines: a request is stamped once at the edge and every
@@ -30,18 +30,15 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, Optional
 from urllib.parse import parse_qsl, urlsplit
 
-
-class ServeError(Exception):
-    """Base of the serving path's typed errors (the reference's
-    ``RayTpuError``)."""
+from ..exceptions import RayTpuError
 
 
-class RequestDeadlineExceeded(ServeError, TimeoutError):
+class RequestDeadlineExceeded(RayTpuError, TimeoutError):
     """The request's absolute deadline passed before (or while) it could
     be answered. Never retried: nobody is waiting."""
 
 
-class ReplicaOverloadedError(ServeError):
+class ReplicaOverloadedError(RayTpuError):
     """Typed replica pushback: the replica is at ``max_ongoing_requests``.
 
     A router re-picks another replica instead of marking this one dead:
@@ -52,14 +49,14 @@ class ReplicaOverloadedError(ServeError):
     retryable = True
 
 
-class ReplicaDrainingError(ServeError):
+class ReplicaDrainingError(RayTpuError):
     """Typed drain pushback: the replica stopped admitting because it is
     being torn down. Like overload, a routing signal."""
 
     retryable = True
 
 
-class BackPressureError(ServeError):
+class BackPressureError(RayTpuError):
     """Every replica is saturated and the pending queue is past its
     bound; the request was shed instead of queued (HTTP ``503`` with
     ``Retry-After``). ``retry_after_s`` is the server's backoff hint."""

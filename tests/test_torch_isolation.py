@@ -1,6 +1,9 @@
 """The port stands alone: ``ray_tpu_torch`` and ``chip_smoke.py`` import
 neither ``jax`` nor ``ml_dtypes`` nor anything of the JAX package
-``ray_tpu`` or of the developer tools under ``tools/``.
+``ray_tpu`` or of the developer tools under ``tools/``, nor an installed
+``cloudpickle`` or ``psutil`` (the card's machine has neither; the
+runtime ships functions through its vendored
+``ray_tpu_torch.cloudpickle`` and reads ``/proc`` for node stats).
 
 Checked twice: by an AST scan of every file in the package (the threefry
 PRNG and the drafters, which reimplement JAX's and copy the reference's,
@@ -17,11 +20,17 @@ the predictor's ``uint8_input`` path) and one in training, serving
 one request on a tp=2 engine, one local PPO iteration on a numpy
 environment, one SAC update with CQL's regularizer, one DreamerV3
 update, one multi-agent PPO iteration and one IMPALA iteration on two
-runner threads, in
-a fresh interpreter where ``jax`` and ``ml_dtypes`` are poisoned in
-``sys.modules`` and an import hook refuses them, ``optax``,
-``gymnasium``, ``tools``, and ``ray_tpu`` and ``ray_tpu.*`` (but not
-``ray_tpu_torch``). The AST scan also refuses ``optax`` anywhere and a
+runner threads, and by starting the port's core runtime and running a
+task (which reports the blocked modules its worker loaded, and tries to
+import each), an actor and a nano engine actor whose weights come
+through the object store and whose stream equals the child's own
+engine's, in
+a fresh interpreter where an import hook refuses ``jax``, ``ml_dtypes``,
+``optax``,
+``gymnasium``, ``tools``, ``cloudpickle``, ``psutil``, and ``ray_tpu``
+and ``ray_tpu.*`` (but not ``ray_tpu_torch``). The block is a
+``sitecustomize.py`` on the child's ``PYTHONPATH``, so the runtime's
+worker processes, which inherit that path, hold it too. The AST scan also refuses ``optax`` anywhere and a
 module-level ``gymnasium`` import (the card's machine has neither). A subprocess, because this
 suite's conftest imports JAX into the test process. The tp=2 engine's
 follower process is spawned afresh, without that block, so it reports
@@ -48,7 +57,8 @@ def _forbidden(name: str) -> bool:
     return top in FORBIDDEN
 
 
-FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "ray_tpu", "optax", "tools")
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "ray_tpu", "optax", "tools",
+             "cloudpickle", "psutil")
 
 
 def test_no_jax_or_reference_imports_in_source():
@@ -72,7 +82,12 @@ def test_no_jax_or_reference_imports_in_source():
                  "rllib/impala.py", "rllib/appo.py", "data/__init__.py",
                  "data/block.py", "data/llm.py", "_private/events.py",
                  "_private/metrics.py", "serve/request.py",
-                 "serve/batching.py", "util/tracing.py"):
+                 "serve/batching.py", "util/tracing.py", "api.py",
+                 "exceptions.py", "core/worker.py", "_private/head.py",
+                 "_private/serialization.py", "_private/object_store.py",
+                 "_private/node_agent.py", "_private/accelerators.py",
+                 "_private/worker_main.py", "utils/device.py",
+                 "cloudpickle/cloudpickle.py"):
         assert os.path.join(PKG, must) in files, must
     files.append(os.path.join(ROOT, "chip_smoke.py"))
     bad = []
@@ -114,14 +129,17 @@ def test_gymnasium_only_imported_inside_functions():
     assert not bad, bad
 
 
-_CHILD = r"""
+#: The block, as a ``sitecustomize.py`` on the child's ``PYTHONPATH``:
+#: every interpreter that inherits the child's environment runs it at
+#: start-up (the runtime's worker processes, through
+#: ``utils.spawn_env_with_pkg_root``; the tp follower), not the child
+#: alone.
+_BLOCK = r"""
 import importlib.abc
 import sys
 
 BLOCKED = ("jax", "jaxlib", "ml_dtypes", "ray_tpu", "optax", "gymnasium",
-           "tools")
-sys.modules["jax"] = None          # `import jax` raises ImportError
-sys.modules["ml_dtypes"] = None
+           "tools", "cloudpickle", "psutil")
 
 
 class _Refuse(importlib.abc.MetaPathFinder):
@@ -133,7 +151,18 @@ class _Refuse(importlib.abc.MetaPathFinder):
 
 
 sys.meta_path.insert(0, _Refuse())
+"""
 
+_CHILD = r"""
+import sys
+
+from sitecustomize import BLOCKED
+
+try:
+    import jax  # noqa: F401
+    raise AssertionError("the block is not installed")
+except ImportError:
+    pass
 import dataclasses
 import tempfile
 
@@ -406,6 +435,76 @@ algo = (rllib.IMPALAConfig().environment(env_creator=Walk)
 m = algo.train()
 algo.stop()
 assert np.isfinite(m["total_loss"]) and m["num_fragments"] >= 1, m
+# The core runtime: a task, an actor and a nano engine actor, in worker
+# processes that inherit the block (sitecustomize on PYTHONPATH).
+import os
+
+import ray_tpu_torch as rt
+
+os.environ["OMP_NUM_THREADS"] = "1"
+cfg = gpt.CONFIGS["nano"]
+eng = DecodeEngine(params, cfg, slots=2, chunk=4, max_len=64,
+                   prompt_buckets=(8, 16), page_size=8, device="cpu")
+try:
+    direct = np.concatenate(list(eng.stream(np.arange(7, dtype=np.int32),
+                                            6)))
+finally:
+    eng.shutdown()
+rt.init(num_cpus=3, num_gpus=0)
+try:
+    @rt.remote
+    def loaded(names):
+        import sys
+
+        refused = []
+        for name in names:
+            try:
+                __import__(name)
+            except ImportError:
+                refused.append(name)
+        return sorted(m for m in sys.modules if m.split(".")[0] in names
+                      and sys.modules[m] is not None), refused
+
+    leaked, refused = rt.get(loaded.remote(list(BLOCKED)), timeout=60)
+    assert leaked == [] and refused == list(BLOCKED), (leaked, refused)
+
+    @rt.remote
+    class Counter:
+        def __init__(self):
+            self.n = 0
+
+        def inc(self):
+            self.n += 1
+            return self.n
+
+    c = Counter.remote()
+    assert rt.get([c.inc.remote() for _ in range(3)], timeout=60) == [1, 2, 3]
+
+    @rt.remote
+    class Host:
+        def __init__(self, params):
+            from ray_tpu_torch.serve.engine import DecodeEngine
+
+            self.eng = DecodeEngine(params, cfg, slots=2, chunk=4,
+                                    max_len=64, prompt_buckets=(8, 16),
+                                    page_size=8, device="cpu")
+
+        def serve(self, prompt, n):
+            return np.concatenate(list(self.eng.stream(prompt, n)))
+
+        def modules(self):
+            self.eng.shutdown()
+            return sorted(m for m in sys.modules
+                          if m.split(".")[0] in BLOCKED
+                          and sys.modules[m] is not None)
+
+    host = Host.remote(rt.put(params))
+    out = rt.get(host.serve.remote(np.arange(7, dtype=np.int32), 6),
+                 timeout=120)
+    assert np.array_equal(out, direct), (out, direct)
+    assert rt.get(host.modules.remote(), timeout=60) == []
+finally:
+    rt.shutdown()
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in BLOCKED
                 and sys.modules[m] is not None)
@@ -414,9 +513,11 @@ print("ISOLATED-OK")
 """
 
 
-def test_serves_with_jax_and_reference_blocked():
+def test_serves_with_jax_and_reference_blocked(tmp_path):
+    (tmp_path / "sitecustomize.py").write_text(_BLOCK)
     env = dict(os.environ)
-    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(tmp_path), ROOT] + [p for p in [env.get("PYTHONPATH")] if p])
     res = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT,
                          env=env, capture_output=True, text=True,
                          timeout=240)
