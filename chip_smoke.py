@@ -858,6 +858,9 @@ def train_phase(card: str, n_experts: int = 0) -> dict:
         f"{BF16_FLOPS:g}), peak memory {peak / 2**30:.3f} GiB")
     log(f"{label} losses: {[round(x, 4) for x in losses]}"
         + (f"; moe_aux: {[round(x, 4) for x in auxs]}" if n_experts else ""))
+    if not n_experts:
+        TRAIN_FIGURES.update(first_loss=losses[0],
+                             step_ms=dt / iters * 1e3)
     log(f"{label} launches in {iters} steps: {counts} (want {want}: "
         f"n_layer={L} x (2 if remat recomputes else 1) K2, n_layer each "
         f"K3a/K3b, per step)")
@@ -6056,6 +6059,301 @@ def cluster_phase(params, cfg, reqs, toks, ttft, tpot, card):
             p.wait(timeout=30)
 
 
+# Train on the runtime (slice 21): TorchTrainer's worker actors on the
+# card. (a) GPT-2 small at bench.py's shape in one num_gpus=1 worker:
+# 1 + 3 steps through K2/K3 in the worker process, held to train_phase's
+# in-process first loss; (b) two workers at num_gpus=0.5 joined into one
+# gloo process group (multi_controller=True) at {fsdp: 2}; (c) the same
+# gang with one worker killed with kill -9 after its third step's report,
+# restarted once from the latest sharded checkpoint, whose final
+# parameters must equal (b)'s bit for bit.
+#: The first loss in the worker against train_phase's in the driver: the
+#: same weights, batch and kernels in another process. bf16 products may
+#: take another cuBLAS algorithm there; 1e-3 of a loss of ~11 is a few
+#: bf16 ulps of the logits averaged over 32,768 tokens.
+TRAIN_RT_LOSS_TOL = 1e-3
+#: (b)/(c): GPT-2 small's widths, depth cut to 2 layers, B=8 S=1024
+#: (4 rows a rank), 4 steps, a sharded checkpoint after each.
+TRAIN_RT_GANG = dict(n_layer=2, B=8, steps=4, kill_after=2)
+#: in-process figures of train_phase's dense run (first loss, step ms)
+TRAIN_FIGURES: dict = {}
+
+
+def _state_tree(state, like=False):
+    """A training state as one tree for a sharded checkpoint: the f32
+    parameters, AdamW's two moments and step counts, and the step.
+    ``like``: zeros of the same shapes (a restore's target)."""
+    import torch
+
+    params, opt = state["params"], state["opt"]
+    names = sorted(params)
+
+    def moment(n, key):
+        p = params[n]
+        if like or p not in opt.state:
+            return torch.zeros_like(p.detach())
+        return opt.state[p][key]
+
+    return {"params": {n: torch.zeros_like(params[n].detach()) if like
+                       else params[n].detach() for n in names},
+            "exp_avg": {n: moment(n, "exp_avg") for n in names},
+            "exp_avg_sq": {n: moment(n, "exp_avg_sq") for n in names},
+            "opt_step": {n: torch.zeros((), dtype=torch.float32) if like
+                         or params[n] not in opt.state
+                         else opt.state[params[n]]["step"] for n in names},
+            "step": torch.tensor(0 if like else state["step"])}
+
+
+def _state_places(places):
+    """Placements of :func:`_state_tree`'s leaves (``make_train_step``'s
+    ``state_placements``)."""
+    names = sorted(places["params"])
+    return {"params": places["params"], "exp_avg": places["params"],
+            "exp_avg_sq": places["params"],
+            "opt_step": {n: places["step"] for n in names},
+            "step": places["step"]}
+
+
+def _restore_state(state, tree):
+    """Load a :func:`_state_tree` into ``state`` (parameters in place,
+    AdamW's per-parameter state set as ``load_state_dict`` would)."""
+    import torch
+
+    params, opt = state["params"], state["opt"]
+    with torch.no_grad():
+        for n, p in params.items():
+            p.copy_(tree["params"][n])
+            opt.state[p] = {"step": tree["opt_step"][n],
+                            "exp_avg": tree["exp_avg"][n],
+                            "exp_avg_sq": tree["exp_avg_sq"][n]}
+    state["step"] = int(tree["step"])
+    return state
+
+
+def _train_worker_loop(config):
+    """The trainer's loop, in each worker process (shipped by value):
+    GPT-2 small (``config["n_layer"]`` layers; all 12 when absent) with
+    the flash kernels, on one card or on ``{fsdp: n}`` over the gang's
+    process group; steps on the seed-5 batch, a sharded checkpoint after
+    each (no path; only after the last with ``config["last_only"]``),
+    reports of loss, step ms and the kernels' launch counts (zeroed just
+    before step ``config["warmup"]``). Resumes from the latest
+    checkpoint after a restart; ``config["kill_after"]`` kills rank 1's
+    process after the report of that many steps, once. The last report
+    carries the sha256 of every rank's parameter shards."""
+    import dataclasses
+    import hashlib
+    import os
+    import time
+
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel import create_mesh
+
+    age = process_age_s()
+    t_start = time.perf_counter()
+    if not torch.cuda.is_available():
+        raise RuntimeError("the train worker sees no CUDA device")
+    rank = train.get_context().get_world_rank()
+    cfg = dataclasses.replace(gpt.CONFIGS["small"], remat="dots",
+                              attn_backend="flash",
+                              n_layer=config.get("n_layer",
+                                                 gpt.CONFIGS["small"].n_layer))
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    mesh = create_mesh({"fsdp": world}) if world > 1 else None
+    init, step, places, _ = gpt.make_train_step(cfg, mesh, device="cuda")
+    state = init(seed=0)
+    ckpt = train.get_checkpoint()
+    start = 0
+    if ckpt is not None:
+        state = _restore_state(state, ckpt.load_sharded_state(
+            _state_tree(state, like=True),
+            placements=_state_places(places) if world > 1 else None))
+        start = state["step"]
+    batch = _train_batch(cfg, config["B"], TRAIN_S, 5, "cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t_start
+    for i in range(start, config["steps"]):
+        if i == config.get("warmup", 0):
+            fa.launches.update(dict.fromkeys(fa.launches, 0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        loss = float(m["loss"])           # synchronises
+        step_ms = (time.perf_counter() - t0) * 1e3
+        last = i == config["steps"] - 1
+        c, save_s = None, 0.0
+        if last or not config.get("last_only"):
+            t0 = time.perf_counter()
+            c = train.Checkpoint.from_sharded_state(
+                _state_tree(state),
+                placements=_state_places(places) if world > 1 else None)
+            save_s = time.perf_counter() - t0
+        digest = None
+        if last:
+            h = hashlib.sha256()
+            for n in sorted(state["params"]):
+                h.update(state["params"][n].detach().cpu().numpy()
+                         .tobytes())
+            digest = [h.hexdigest()]
+            if world > 1:
+                every = [None] * world
+                dist.all_gather_object(every, digest[0])
+                digest = every
+            digest = "/".join(digest)
+        train.report({"step": i, "loss": loss, "step_ms": step_ms,
+                      "save_s": save_s, "resumed_from": start,
+                      "process_age_s": age, "setup_s": setup_s,
+                      "launches": dict(fa.launches), "digest": digest,
+                      "world": world, "pid": os.getpid(),
+                      "device": str(torch.cuda.current_device())},
+                     checkpoint=c)
+        if i + 1 == config.get("kill_after") and rank == 1 and \
+                not os.path.exists(config["marker"]):
+            open(config["marker"], "w").write("x")
+            os.kill(os.getpid(), 9)
+
+
+def train_runtime_phase(card: str) -> dict:
+    """``TorchTrainer`` on the card (the slice's path): (a) one
+    ``num_gpus=1`` worker trains GPT-2 small at bench.py's shape, 1 + 3
+    steps through K2/K3 in the worker; (b) two ``num_gpus=0.5`` workers
+    in one gloo process group at ``{fsdp: 2}``; (c) (b) with rank 1
+    killed with kill -9 and the gang restarted from its latest sharded
+    checkpoint, ending on (b)'s parameters bit for bit. Returns (a)'s
+    K2/K3 launches in the worker (its 3 timed steps)."""
+    import math
+    import os
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import gpt
+
+    L = gpt.CONFIGS["small"].n_layer
+    want_step = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dkdv": L,
+                 "flash_attention_bwd_dq": L}
+    store = tempfile.mkdtemp(prefix="rtt_train_")
+    t_phase = time.perf_counter()
+    rt.init(num_cpus=RUNTIME_CPUS)
+    try:
+        # (a) one worker, the main path
+        t0 = time.perf_counter()
+        r = train.TorchTrainer(
+            _train_worker_loop,
+            train_loop_config={"B": TRAIN_B, "steps": 4, "warmup": 1,
+                               "last_only": True},
+            scaling_config=train.ScalingConfig(
+                num_workers=1, use_gpu=True, gpus_per_worker=1),
+            run_config=train.RunConfig(name="train_small",
+                                       storage_path=store)).fit()
+        fit_s = time.perf_counter() - t0
+        if r.error is not None:
+            raise AssertionError(f"train runtime (a): {r.error}")
+        h = r.metrics_history
+        losses = [m["loss"] for m in h]
+        timed = [m["step_ms"] for m in h[1:]]
+        counts = h[-1]["launches"]
+        want = {k: 3 * v for k, v in want_step.items()}
+        first = TRAIN_FIGURES["first_loss"]
+        log(f"train runtime (a) [{card}]: TorchTrainer, 1 worker "
+            f"(num_gpus=1, card {h[0]['device']}, pid {h[0]['pid']}), "
+            f"GPT-2 small B={TRAIN_B} S={TRAIN_S} bf16 remat=dots flash: "
+            f"fit {fit_s:.3f} s; the worker's process was "
+            f"{h[0]['process_age_s']:.3f} s old when the loop began "
+            f"(spawn, imports, registration, backend), setup (model, "
+            f"optimizer, batch) {h[0]['setup_s']:.3f} s; step ms "
+            f"{[round(x, 3) for x in timed]} (mean "
+            f"{sum(timed) / len(timed):.3f}) against "
+            f"{TRAIN_FIGURES['step_ms']:.3f} in process; sharded "
+            f"checkpoint (params + AdamW moments) after the last step "
+            f"{h[-1]['save_s']:.3f} s")
+        log(f"train runtime (a) losses {[round(x, 6) for x in losses]}; "
+            f"first {losses[0]:.6f} vs in-process {first:.6f}, |diff| "
+            f"{abs(losses[0] - first):.3g} (tolerance {TRAIN_RT_LOSS_TOL})"
+            f"; launches in the worker's 3 timed steps {counts} (want "
+            f"{want}); checkpoint {r.checkpoint}")
+        if not all(map(math.isfinite, losses)) or \
+                not losses[-1] < losses[0]:
+            raise AssertionError(f"train runtime (a): losses {losses}")
+        if not abs(losses[0] - first) <= TRAIN_RT_LOSS_TOL:
+            raise AssertionError("train runtime (a): the worker's first "
+                                 "loss differs from the in-process one")
+        if counts != want:
+            raise AssertionError(f"train runtime (a): launches {counts}")
+        if r.checkpoint is None or not os.path.exists(os.path.join(
+                r.checkpoint.path, "sharded", ".metadata")):
+            raise AssertionError(f"train runtime (a): checkpoint "
+                                 f"{r.checkpoint}")
+        out = dict(counts)
+
+        # (b) two workers sharing the card, one gloo process group
+        g = TRAIN_RT_GANG
+        gang = dict(num_workers=2, use_gpu=True, gpus_per_worker=0.5)
+        runs = {}
+        for label, kill in (("b", None), ("c", g["kill_after"])):
+            cfg = {"B": g["B"], "steps": g["steps"], "n_layer": g["n_layer"],
+                   "warmup": 1, "kill_after": kill,
+                   "marker": os.path.join(store, f"killed_{label}")}
+            t0 = time.perf_counter()
+            r = train.TorchTrainer(
+                _train_worker_loop, train_loop_config=cfg,
+                torch_config=train.TorchBackendConfig(multi_controller=True),
+                scaling_config=train.ScalingConfig(**gang),
+                run_config=train.RunConfig(
+                    name=f"train_gang_{label}", storage_path=store,
+                    failure_config=train.FailureConfig(max_failures=1),
+                    checkpoint_config=train.CheckpointConfig(num_to_keep=2))
+            ).fit()
+            fit_s = time.perf_counter() - t0
+            if r.error is not None:
+                raise AssertionError(f"train runtime ({label}): {r.error}")
+            h = r.metrics_history
+            runs[label] = h
+            log(f"train runtime ({label}) [{card}]: 2 workers (num_gpus=0.5,"
+                f" gloo, {{fsdp: 2}}), GPT-2 small {g['n_layer']} layers "
+                f"B={g['B']} S={TRAIN_S}: fit {fit_s:.3f} s; (step, loss, "
+                f"step ms, resumed from) "
+                f"{[(m['step'], round(m['loss'], 6), round(m['step_ms'], 3), m['resumed_from']) for m in h]}"
+                f"; rank 0's launches since step 1 {h[-1]['launches']}; "
+                f"final parameters sha256 {h[-1]['digest'][:16]}")
+            if [m["world"] for m in h] != [2] * len(h) or \
+                    h[-1]["step"] != g["steps"] - 1:
+                raise AssertionError(f"train runtime ({label}): {h}")
+        b, c = runs["b"], runs["c"]
+        losses = [m["loss"] for m in b]
+        per = {k: v // L * g["n_layer"] for k, v in want_step.items()}
+        want = {k: (g["steps"] - 1) * v for k, v in per.items()}
+        if not all(map(math.isfinite, losses)) or \
+                not losses[-1] < losses[0] or b[-1]["launches"] != want:
+            raise AssertionError(f"train runtime (b): losses {losses}, "
+                                 f"launches {b[-1]['launches']} (want "
+                                 f"{want})")
+        if not os.path.exists(os.path.join(store, "killed_c")) or \
+                c[-1]["resumed_from"] < 1:
+            raise AssertionError("train runtime (c): no kill, or the gang "
+                                 "did not resume from a checkpoint")
+        if c[-1]["digest"] != b[-1]["digest"]:
+            raise AssertionError("train runtime (c): the resumed gang's "
+                                 "parameters differ from (b)'s")
+        log(f"train runtime (c): rank 1 killed with kill -9 after the "
+            f"report of step {g['kill_after'] - 1}; the gang restarted and "
+            f"resumed at step {c[-1]['resumed_from']} from its sharded "
+            f"checkpoint; final parameters equal (b)'s bit for bit "
+            f"(sha256 {c[-1]['digest'][:16]})")
+        log(f"train runtime phase [{card}]: {time.perf_counter() - t_phase:.3f}"
+            f" s")
+        return out
+    finally:
+        rt.shutdown()
+        shutil.rmtree(store, ignore_errors=True)
+
+
 def np_equal(a, b):
     return a.shape == b.shape and bool((a == b).all())
 
@@ -6280,6 +6578,11 @@ def main() -> int:
     # ---- 7d. pipeline, expert parallelism (and MoE x tp, MoE x sp),
     # multislice: two ranks (gloo)
     records += pipeline_ep_phase(card)
+
+    # ---- 7e. Train on the runtime: TorchTrainer's workers on the card
+    worker = train_runtime_phase(card)
+    for rec in flash_records:
+        rec["launches"] += worker[rec["name"]]
 
     # ---- 8. ResNet: ResNet-18 card vs CPU, ResNet-50 serving and a step
     resnet_phase(card)

@@ -64,11 +64,11 @@ and ``utils/device.device_put_shm`` stages them on the card); functions
 and classes ship by value through the vendored
 :mod:`ray_tpu_torch.cloudpickle`.
 
-Not ported yet (ROADMAP Queue 1): what spans hosts or stands on the
-runtime's other libraries — multi-node clusters, the autoscaler and the
-CLI (``address="auto"``, ``serve deploy``), Train, Data's ``Dataset``,
-Tune, ``dag.py``/``workflow/`` (the core's ``.bind()``) and the ``util``
-helpers built on actors.
+Multi-node clusters, the autoscaler (with GPU gangs) and the CLI
+(``address="auto"``, ``serve deploy``) are ported, and so is Train
+(``train/``: ``TorchTrainer`` on the runtime's actors). Not ported yet
+(ROADMAP Queue 1): Data's ``Dataset``, Tune, ``dag.py``/``workflow/``
+(the core's ``.bind()``) and the ``util`` helpers built on actors.
 
 Importing ``ray_tpu_torch`` imports neither torch nor numpy: the runtime
 stays light, and torch loads with the numeric subpackages or with the

@@ -15,11 +15,19 @@ container can list a card's file and refuse it: its device cgroup
 answers ``EPERM``). The model comes from the ``Model:`` line of
 ``/proc/driver/nvidia/gpus/*/information``, or, where the driver's
 procfs has no such files (as in such a container), from
-``nvidia-smi --query-gpu=name``. The
-reference's slice-head anchor (``TPU-{pod}-head``) has no single-host GPU
-counterpart; it waits for the autoscaler's slice. Like the reference,
-the runtime pins no card per worker: a task that holds ``GPU`` sees every
-visible card and picks its device itself.
+``nvidia-smi --query-gpu=name``. Like the reference, the runtime pins
+no card per worker: a task that holds ``GPU`` sees every visible card and
+picks its device itself.
+
+Gangs (the reference's ``:33-99``): a GPU gang is a set of hosts whose
+cards train as one job, named ``{model}-{cards}`` (``"h100-16"``: 16
+cards over two 8-card hosts). Host 0 of a gang advertises the anchor
+``GPU-{gang}-head`` (the reference's ``TPU-{pod}-head``), so a
+``ScalingConfig(topology=...)`` placement group lands on exactly one
+gang. A host learns its gang from ``RT_GPU_TOPOLOGY`` and its index in
+it from ``RT_GPU_WORKER_ID`` (the variables a provisioner sets; the
+reference reads the TPU runtime's), and the cards per host from
+``RT_GPU_CARDS_PER_HOST`` (default 8).
 """
 from __future__ import annotations
 
@@ -27,7 +35,7 @@ import glob
 import os
 import re
 import subprocess
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 _DEV_RE = re.compile(r"^/dev/nvidia(\d+)$")
 
@@ -83,14 +91,75 @@ def short_model_name(full: str) -> str:
     return words[0].split("-")[0]
 
 
-def gang_resources(num_gpus: float,
-                   model: Optional[str] = None) -> Dict[str, float]:
+#: Cards per host of a gang unless ``RT_GPU_CARDS_PER_HOST`` says
+#: otherwise (an HGX/DGX board carries 8).
+CARDS_PER_HOST = 8
+
+
+def normalize_pod_type(raw: str) -> str:
+    """'NVIDIA-H100-16' → 'h100-16'; already-short names pass through."""
+    name = raw.strip().lower()
+    return name[len("nvidia-"):] if name.startswith("nvidia-") else name
+
+
+def parse_topology(topology: str) -> Tuple[str, int]:
+    """'h100-16' → ('h100', 16). Raises ValueError on malformed input."""
+    topology = normalize_pod_type(topology)
+    model, _, cards = topology.partition("-")
+    if not cards or not cards.isdigit():
+        raise ValueError(
+            f"malformed GPU topology {topology!r}; expected "
+            "'<model>-<cards>' like 'h100-16'")
+    return model, int(cards)
+
+
+def cards_per_host() -> int:
+    env = os.environ.get("RT_GPU_CARDS_PER_HOST")
+    return int(env) if env else CARDS_PER_HOST
+
+
+def num_hosts(topology: str) -> int:
+    _, cards = parse_topology(topology)
+    return max(1, cards // cards_per_host())
+
+
+def detect_pod_type() -> Optional[str]:
+    """The gang this host belongs to, e.g. 'h100-16' (None outside one)."""
+    raw = os.environ.get("RT_GPU_TOPOLOGY")
+    return normalize_pod_type(raw) if raw else None
+
+
+def detect_worker_id() -> int:
+    """This host's index within its gang (0 on a single host)."""
+    return int(os.environ.get("RT_GPU_WORKER_ID", "0") or 0)
+
+
+def head_resource_name(pod_type: str) -> str:
+    return f"GPU-{normalize_pod_type(pod_type)}-head"
+
+
+def gang_resources(num_gpus: float, model: Optional[str] = None,
+                   pod_type: Optional[str] = None,
+                   worker_id: Optional[int] = None) -> Dict[str, float]:
     """Extra node resources advertised alongside ``GPU: num_gpus``: the
-    ``accelerator_type:{model}`` label, valued at the card count.
-    ``model`` defaults to procfs detection."""
+    ``accelerator_type:{model}`` label, valued at the card count, and on
+    host 0 of a gang the ``GPU-{gang}-head`` anchor. ``model`` defaults
+    to the gang's (upper case) or to procfs detection; ``pod_type`` and
+    ``worker_id`` to the environment (a gang host), and explicit values
+    let a provisioner (the autoscaler's slice provider) mint the shape of
+    a host it is about to launch."""
     if not num_gpus:
         return {}
+    pod = normalize_pod_type(pod_type) if pod_type else detect_pod_type()
+    if not model and pod:
+        model = parse_topology(pod)[0].upper()
     model = model or detect_gpu_model()
-    if not model:
-        return {}
-    return {f"accelerator_type:{model}": float(num_gpus)}
+    res: Dict[str, float] = {}
+    if model:
+        res[f"accelerator_type:{model}"] = float(num_gpus)
+    if pod:
+        parse_topology(pod)
+        wid = detect_worker_id() if worker_id is None else worker_id
+        if wid == 0:
+            res[head_resource_name(pod)] = 1.0
+    return res

@@ -1,8 +1,10 @@
 """Collective communication (the port of ``ray_tpu/collective/``):
-groups over ``torch.distributed`` process groups, NCCL or gloo."""
+groups over ``torch.distributed`` process groups, NCCL or gloo, and the
+store group over the runtime's KV and object store."""
 from .collective import (  # noqa: F401
     BaseGroup,
     MeshGroup,
+    StoreGroup,
     allgather,
     allreduce,
     alltoall,

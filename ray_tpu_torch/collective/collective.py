@@ -22,14 +22,18 @@ result lies where the input did.
 Every group has a timeout (:data:`TIMEOUT_S`, or the caller's): an op
 that a rank never joins raises on the others instead of hanging.
 
-``StoreGroup`` rides the reference's runtime (its head KV and object
-store) and is not ported.
+:class:`StoreGroup` (``collective.py:195-500``, ``backend="store"``) is
+the cross-actor group over the port's runtime: the head's KV and the
+object store, with no process group at all. It carries host-side and
+control data between actors (rendezvous, weight broadcast), numpy arrays
+and torch tensors alike.
 """
 from __future__ import annotations
 
 import datetime
 import threading
-from typing import Dict, Optional, Sequence
+import time
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -256,6 +260,300 @@ class MeshGroup(BaseGroup):
         self.pg = None
 
 
+class StoreGroup(BaseGroup):
+    """Cross-actor SPMD group over the head KV and the object store
+    (``collective.py:195``): every member calls the same op with its own
+    data; slots rendezvous through the KV.
+
+    Payloads up to :data:`INLINE_MAX` bytes ride the KV inline; larger
+    ones go into the object store once and only the (object id, owner)
+    pair crosses the KV, receivers pulling the object (torch tensors out
+    of band, as the runtime's serialization carries them). Every
+    :data:`SYNC_EVERY` generations the ranks rendezvous, which bounds
+    their skew, and each rank deletes its own publications
+    :data:`GC_LAG` generations behind.
+
+    A group name is single-incarnation: destroy it before re-creating a
+    same-named group. The group instance must outlive in-flight
+    consumption (its held refs keep published objects alive): create
+    groups through :func:`init_collective_group`, whose registry owns
+    them until :func:`destroy_collective_group`.
+
+    Results: numpy for numpy (or scalar) inputs, READ-ONLY zero-copy
+    views when they came through the store (copy before mutating in
+    place); a tensor on the input's device for a tensor input.
+    """
+
+    #: inline-in-KV threshold; larger payloads ride the object store
+    INLINE_MAX = 4096
+    #: full rendezvous every N generations
+    SYNC_EVERY = 8
+    #: publications are retained this many generations
+    GC_LAG = 16
+    #: default wait for a peer's publication (``fetch_timeout_s``)
+    DEFAULT_FETCH_TIMEOUT_S = 120.0
+
+    def __init__(self, name: str, world_size: int, rank: int,
+                 fetch_timeout_s: Optional[float] = None):
+        super().__init__(name, world_size, rank)
+        from ..core.worker import CoreWorker
+
+        self.fetch_timeout_s = (self.DEFAULT_FETCH_TIMEOUT_S
+                                if fetch_timeout_s is None
+                                else float(fetch_timeout_s))
+        self._core = CoreWorker.current()
+        self._gen = 0
+        self._p2p_seq: Dict[tuple, int] = {}
+        self._own_slots: Dict[int, list] = {}   # gen -> [kv keys]
+        self._held: Dict[int, list] = {}        # gen -> [ObjectRefs]
+        # kv bytes / store transfer counts
+        self.stats = {"kv_bytes_out": 0, "kv_bytes_in": 0,
+                      "store_puts": 0, "store_gets": 0}
+
+    # -- KV helpers -------------------------------------------------------
+    def _kv_put(self, key: str, value: bytes):
+        self._core.kv_put(key, value, ns="collective")
+
+    def _kv_get(self, key: str, timeout: Optional[float] = None) -> bytes:
+        timeout = self.fetch_timeout_s if timeout is None else timeout
+        deadline = time.time() + timeout
+        while time.time() < deadline:
+            out = self._core.kv_get(key, ns="collective")
+            if out is not None:
+                return out
+            time.sleep(0.002)
+        raise TimeoutError(f"collective kv wait: {key}")
+
+    def _slot(self, gen: int, what: str, rank: int, tag: int = 0) -> str:
+        return f"__coll__/{self.name}/{gen}/{what}/{tag}/{rank}"
+
+    # -- generation / GC --------------------------------------------------
+    def _next_gen(self) -> int:
+        """Claim the next generation; every SYNC_EVERY generations all
+        ranks rendezvous, which bounds skew below SYNC_EVERY and lets
+        :meth:`_gc` run without per-op acknowledgements."""
+        gen = self._gen
+        self._gen += 1
+        if gen and gen % self.SYNC_EVERY == 0:
+            key = self._slot(gen, "sy", self.rank)
+            self._kv_put(key, b"1")
+            self._own_slots.setdefault(gen, []).append(key)
+            for r in range(self.world_size):
+                self._kv_get(self._slot(gen, "sy", r))
+            self._gc(gen)
+        return gen
+
+    def _gc(self, gen: int):
+        """Delete this rank's publications older than GC_LAG generations
+        and drop their held refs (every peer is past them)."""
+        horizon = gen - self.GC_LAG
+        for g in [g for g in self._own_slots if g <= horizon]:
+            for key in self._own_slots.pop(g):
+                try:
+                    self._core.kv_del(key, ns="collective")
+                except Exception:  # noqa: BLE001 - hygiene only
+                    pass
+            self._held.pop(g, None)
+
+    # -- payload transport ------------------------------------------------
+    def _publish(self, gen: int, what: str, x, tag: int = 0):
+        """This rank's payload for (gen, what): inline in the KV when
+        small, else one object in the store whose id crosses the KV."""
+        import pickle
+
+        nbytes = _nbytes(x)
+        raw = _encode(x) if nbytes is None or nbytes <= self.INLINE_MAX \
+            else None
+        if raw is not None and len(raw) <= self.INLINE_MAX:
+            payload = pickle.dumps(("inline", raw))
+        else:
+            ref = self._core.put(x)
+            self._held.setdefault(gen, []).append(ref)
+            self.stats["store_puts"] += 1
+            payload = pickle.dumps(
+                ("ref", ref.object_id.binary(), ref.owner_address))
+        key = self._slot(gen, what, self.rank, tag)
+        self._kv_put(key, payload)
+        self.stats["kv_bytes_out"] += len(payload)
+        self._own_slots.setdefault(gen, []).append(key)
+
+    def _fetch(self, gen: int, what: str, rank: int, tag: int = 0,
+               timeout: Optional[float] = None):
+        import pickle
+
+        from .._private.ids import ObjectID
+        from ..core.worker import ObjectRef
+
+        blob = self._kv_get(self._slot(gen, what, rank, tag), timeout)
+        self.stats["kv_bytes_in"] += len(blob)
+        rec = pickle.loads(blob)
+        if rec[0] == "inline":
+            return _decode(rec[1])
+        _, oid_bytes, owner = rec
+        oid = ObjectID(oid_bytes)
+        # A remote owner's object: borrow before materialising the
+        # counted ref, whose death pays the borrow back; the publisher's
+        # held ref keeps the object alive GC_LAG generations. Own
+        # objects skip the borrow (an owner's ref deaths never pay one).
+        if owner != self._core.address:
+            self._core.refs.acquire_borrow(oid, owner)
+        self.stats["store_gets"] += 1
+        return self._core.get(ObjectRef(oid, owner))
+
+    # -- collectives ------------------------------------------------------
+    def allreduce(self, x, op="sum"):
+        """Binomial-tree reduce to rank 0, then a store broadcast down:
+        at most log2(W) + 1 payload transfers a rank."""
+        gen = self._next_gen()
+        part = _array(x, x)
+        mask = 1
+        while mask < self.world_size:
+            if self.rank & mask:
+                # lowest set bit: hand the partial to the peer with that
+                # bit clear, then await the broadcast
+                self._publish(gen, "rd", part)
+                break
+            peer = self.rank | mask
+            if peer < self.world_size:
+                part = _combine(part, _array(self._fetch(gen, "rd", peer),
+                                             x), op)
+            mask <<= 1
+        if self.rank == 0:
+            self._publish(gen, "bc", part)
+            return part
+        return _array(self._fetch(gen, "bc", 0), x)
+
+    def allgather(self, x):
+        gen = self._next_gen()
+        self._publish(gen, "ag", x)
+        return _concat([_array(self._fetch(gen, "ag", r), x)
+                        for r in range(self.world_size)])
+
+    def reducescatter(self, x, op="sum"):
+        full = self.allreduce(x, op)
+        return _split(full, self.world_size)[self.rank]
+
+    def broadcast(self, x, src_rank=0):
+        """src puts the payload once; every receiver pulls it: a rank's
+        KV traffic is one small ref record."""
+        gen = self._next_gen()
+        if self.rank == src_rank:
+            self._publish(gen, "bc", x)
+            return x
+        out = self._fetch(gen, "bc", src_rank)
+        return out if x is None else _array(out, x)
+
+    def barrier(self):
+        # the reduce tree with a scalar token: O(log W) small messages
+        self.allreduce(0.0)
+
+    def _p2p_key(self, src: int, dst: int, tag: int, seq: int) -> str:
+        return f"__coll__/{self.name}/p2p/{src}>{dst}/{tag}/{seq}"
+
+    def send(self, x, dst_rank: int, tag: int = 0):
+        k = (self.rank, dst_rank, tag)
+        seq = self._p2p_seq.get(k, 0)
+        self._p2p_seq[k] = seq + 1
+        self._kv_put(self._p2p_key(self.rank, dst_rank, tag, seq), _encode(x))
+
+    def recv(self, shape=None, dtype=None, src_rank: int = 0, tag: int = 0):
+        k = (src_rank, self.rank, tag)
+        seq = self._p2p_seq.get(k, 0)
+        self._p2p_seq[k] = seq + 1
+        key = self._p2p_key(src_rank, self.rank, tag, seq)
+        val = _decode(self._kv_get(key))
+        self._core.kv_del(key, ns="collective")  # consume
+        return val
+
+    def _is_own_key(self, key: str) -> bool:
+        """Keys of this rank's lifecycle: slots it published (ending in
+        ``/{rank}``) and p2p messages it consumes (``{src}>{rank}``); a
+        message it sent belongs to its receiver."""
+        parts = key.split("/")
+        if len(parts) > 2 and parts[2] == "p2p":
+            _src, _, dst = parts[3].partition(">")
+            return dst == str(self.rank)
+        return parts[-1] == str(self.rank)
+
+    def destroy(self, local_only: bool = False):
+        """Delete the group's keys (``local_only``: only this rank's) and
+        drop the held refs, which frees the published objects."""
+        for key in self._core.kv_keys(f"__coll__/{self.name}/",
+                                      ns="collective"):
+            if local_only and not self._is_own_key(key):
+                continue
+            try:
+                self._core.kv_del(key, ns="collective")
+            except Exception:  # noqa: BLE001
+                pass
+        self._own_slots.clear()
+        self._held.clear()
+
+
+def _nbytes(x) -> Optional[int]:
+    """A cheap size estimate, so a large payload is not serialised just
+    to learn that it is over the inline threshold."""
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    if isinstance(x, (bytes, bytearray)):
+        return len(x)
+    return getattr(x, "nbytes", None)
+
+
+def _encode(x) -> bytes:
+    """One blob of the runtime's serialization (tensors of any dtype,
+    bf16 included, bit for bit)."""
+    from .._private import serialization as ser
+
+    return ser.pack_frames(ser.get_context().serialize(x))
+
+
+def _decode(b) -> Any:
+    from .._private import serialization as ser
+
+    return ser.get_context().deserialize(ser.unpack_frames(b))
+
+
+def _array(v, like):
+    """``v`` as ``like``'s kind: a tensor on ``like``'s device, else a
+    numpy array."""
+    import numpy as np
+
+    if isinstance(like, torch.Tensor):
+        v = v if isinstance(v, torch.Tensor) else torch.as_tensor(
+            np.asarray(v))
+        return v.to(like.device)
+    return np.asarray(v)
+
+
+def _concat(parts):
+    import numpy as np
+
+    if isinstance(parts[0], torch.Tensor):
+        return torch.cat(parts)
+    return np.concatenate(parts)
+
+
+def _split(full, n: int):
+    import numpy as np
+
+    if isinstance(full, torch.Tensor):
+        return full.chunk(n)
+    return np.split(full, n)
+
+
+def _combine(a, b, op: str):
+    import numpy as np
+
+    if isinstance(a, torch.Tensor):
+        fns = {"sum": torch.add, "max": torch.maximum, "min": torch.minimum}
+    else:
+        fns = {"sum": np.add, "max": np.maximum, "min": np.minimum}
+    if op not in fns:
+        raise ValueError(op)
+    return fns[op](a, b)
+
+
 # ---------------------------------------------------------------- module API
 def init_collective_group(world_size: int, rank: int, *,
                           backend: Optional[str] = None,
@@ -265,6 +563,10 @@ def init_collective_group(world_size: int, rank: int, *,
                           device=None) -> BaseGroup:
     """Join/declare a collective group (reference ``collective.py:503``).
 
+    ``backend="store"`` makes a :class:`StoreGroup` of ``world_size``
+    ranks over the runtime (no process group; ``fetch_timeout_s`` bounds
+    each wait for a peer). Otherwise (the default; the reference's
+    default is ``"store"``) a :class:`MeshGroup` over ``torch.distributed``.
     With ``mesh``: the ranks of ``mesh`` that differ from this one only
     along ``axis``; ``world_size`` must be that axis's size. Without: the
     whole initialised process group (``initialize_multihost``), whose
@@ -283,6 +585,13 @@ def init_collective_group(world_size: int, rank: int, *,
                     f"group {group_name!r} rank {rank} already exists "
                     f"with world_size={g.world_size}; destroy it before "
                     f"re-creating with different membership")
+            if fetch_timeout_s is not None and hasattr(g, "fetch_timeout_s"):
+                g.fetch_timeout_s = float(fetch_timeout_s)
+            return g
+        if backend == "store":
+            g = StoreGroup(group_name, world_size, rank,
+                           fetch_timeout_s=fetch_timeout_s)
+            _groups[key] = g
             return g
         if not dist.is_initialized():
             raise RuntimeError("no process group is initialised: call "
@@ -336,13 +645,15 @@ def get_group(group_name: str = "default",
 
 def destroy_collective_group(group_name: str = "default",
                              rank: Optional[int] = None):
-    """Leave a group: every local rank of it, or only ``rank``."""
+    """Leave a group: every local rank of it, or only ``rank`` (which
+    removes only that rank's own state, so co-located ranks go on)."""
     with _lock:
         keys = [k for k in _groups
                 if k[0] == group_name and (rank is None or k[1] == rank)]
         dropped = [_groups.pop(k) for k in keys]
-    for g in dropped:
-        g.destroy(local_only=rank is not None)
+    for i, g in enumerate(dropped):
+        # full destroy: the first group wipes the shared state
+        g.destroy(local_only=rank is not None or i > 0)
 
 
 def allreduce(x, op: str = "sum", group_name: str = "default",

@@ -15,8 +15,10 @@ DCN. One step's gradients cross it once, as one flattened f32 vector
 rank on a :class:`~ray_tpu_torch._private.ranks.RankPool`, each slice
 takes one step of the nano GPT on its own tokens, the gradients are
 averaged inside the slice and then across slices, and every rank checks
-that all applied the same update. The reference's runtime (``rt.init``,
-the store group) is not ported: the pool takes its place.
+that all applied the same update. The pool and its gloo groups take
+the place of the reference's runtime and store group; the port has both
+now (``collective.StoreGroup``), and the group across slices may move
+onto it (ROADMAP).
 """
 from __future__ import annotations
 

@@ -14,9 +14,10 @@
   packages (DCP and orbax differ).
 - :class:`CheckpointManager` keeps the top k by a metric.
 
-Storage is a local (or shared, mounted) directory; the reference's
-storage URIs (``mock://``, cloud schemes) ride its runtime's filesystem
-layer, which is not ported.
+A checkpoint's path is a local directory or a storage URI
+(``mock://…``, ``file://…``: :mod:`ray_tpu_torch.train.storage`); a URI
+checkpoint downloads to a local cache on first :meth:`as_directory`, and
+the manager's retention deletes through the URI's filesystem.
 """
 from __future__ import annotations
 
@@ -33,10 +34,19 @@ from .._private import tree as _tree
 
 
 def _local(path: str) -> str:
-    if "://" in path:
-        raise ValueError(f"{path!r}: storage URIs are not ported; pass a "
-                         f"local or mounted directory")
-    return os.path.abspath(path)
+    """A local path made absolute; a storage URI as it is."""
+    from .storage import is_uri
+
+    return path if is_uri(path) else os.path.abspath(path)
+
+
+def _delete(path: str) -> None:
+    from .storage import get_filesystem, is_uri
+
+    if is_uri(path):
+        get_filesystem(path)[0].rmtree(path)
+    else:
+        shutil.rmtree(path, ignore_errors=True)
 
 
 def _is_port_params(state) -> bool:
@@ -67,17 +77,30 @@ def _to_numpy(x) -> np.ndarray:
 
 
 class Checkpoint:
-    """A directory of files; the unit of save/restore."""
+    """A directory of files; the unit of save/restore. ``path`` may be a
+    storage URI (``checkpoint.py:25``)."""
 
     def __init__(self, path: str):
         self.path = _local(path)
+        self._local_cache: Optional[str] = None
 
     @classmethod
     def from_directory(cls, path: str) -> "Checkpoint":
         return cls(path)
 
     def as_directory(self) -> str:
-        return self.path
+        """A local directory holding the checkpoint: the path itself, or
+        a URI checkpoint's download (once)."""
+        from .storage import get_filesystem, is_uri
+
+        if not is_uri(self.path):
+            return self.path
+        if self._local_cache is None or not os.path.exists(
+                self._local_cache):
+            fs, _ = get_filesystem(self.path)
+            cache = tempfile.mkdtemp(prefix="ckpt_dl_")
+            self._local_cache = fs.download_dir(self.path, cache)
+        return self._local_cache
 
     def __repr__(self):
         return f"Checkpoint({self.path})"
@@ -105,7 +128,8 @@ class Checkpoint:
         """The saved leaves (numpy, flatten order) or, given ``like``, a
         tree of its structure whose tensor leaves take the dtype and
         device of ``like``'s (``checkpoint.py:82``)."""
-        with np.load(os.path.join(self.path, f"{name}.npz")) as z:
+        with np.load(os.path.join(self.as_directory(),
+                                  f"{name}.npz")) as z:
             leaves = [z[f"leaf_{i}"] for i in range(len(z.files))]
         if like is None:
             return leaves
@@ -128,21 +152,27 @@ class Checkpoint:
     @classmethod
     def from_sharded_state(cls, state: Any, base_dir: Optional[str] = None,
                            name: str = "sharded", path: Optional[str] = None,
-                           *, placements: Any) -> "Checkpoint":
+                           *, placements: Any = None) -> "Checkpoint":
         """Save a tree of this rank's shards (``checkpoint.py:103``):
         ``placements`` (a tree of the same structure, e.g.
         ``make_train_step``'s ``state_placements["params"]``) says where
-        each shard lies. Every rank of the mesh calls this with the same
-        ``path``; each writes only its own shards. Inside a train
-        session no ``path`` is needed; a single process may omit it."""
+        each shard lies; without it every leaf is whole, and the same on
+        every rank of the process group. Every rank of the mesh calls
+        this with the same ``path``; each writes only its own shards.
+        Inside a train session whose storage is a directory no ``path``
+        is needed (with URI storage the save lands in a temporary
+        directory that ``report`` uploads); a single process may omit
+        it."""
         import torch.distributed as dist
         import torch.distributed.checkpoint as dcp
 
         if path is None:
             from . import session as _session
+            from .storage import is_uri
 
             s = _session.get_session()
-            if s is not None and s.storage_dir:
+            if s is not None and s.storage_dir \
+                    and not is_uri(s.storage_dir):
                 path = s.next_sharded_checkpoint_path()
         if path is not None:
             d = _local(path)
@@ -160,16 +190,17 @@ class Checkpoint:
         return cls(d)
 
     def load_sharded_state(self, like: Any, name: str = "sharded", *,
-                           placements: Any) -> Any:
+                           placements: Any = None) -> Any:
         """This rank's shards of a sharded checkpoint: ``like`` (local
         tensors, or anything with ``shape``/``dtype``/``device``) fixes
-        structure, dtypes and devices, ``placements`` the TARGET layout;
-        a save on another mesh is resharded on read
-        (``checkpoint.py:157``). Every rank of the target mesh calls it."""
+        structure, dtypes and devices, ``placements`` the TARGET layout
+        (default: every leaf whole); a save on another mesh is resharded
+        on read (``checkpoint.py:157``). Every rank of the target mesh
+        calls it."""
         import torch.distributed.checkpoint as dcp
 
         sd, pg = _dcp_state(like, placements, empty=True)
-        dcp.load(sd, checkpoint_id=os.path.join(self.path, name),
+        dcp.load(sd, checkpoint_id=os.path.join(self.as_directory(), name),
                  process_group=pg, no_dist=pg is None)
         return _tree.unflatten(like, [
             (v.to_local() if hasattr(v, "to_local") else v).to(
@@ -183,18 +214,27 @@ def _dcp_state(state, placements, empty: bool = False
     over the placement's mesh for each leaf of a multi-rank mesh (its
     global shape and where this rank's shard lies), the plain CPU tensor
     otherwise; and the process group of the mesh's ranks (``None`` for
-    one rank, which saves and loads alone)."""
+    one rank, which saves and loads alone). Without ``placements`` every
+    leaf is whole on every rank of the process group (DCP writes each
+    once)."""
+    import torch.distributed as dist
+
     pairs = _tree.leaves_with_paths(state)
-    places = _tree.leaves(placements)
+    pg = None
+    if placements is None:
+        places = [None] * len(pairs)
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            pg = dist.group.WORLD
+    else:
+        places = _tree.leaves(placements)
     if len(places) != len(pairs):
         raise ValueError("placements do not match the state's leaves")
     sd: Dict[str, Any] = {}
-    pg = None
     for (path, leaf), pl in zip(pairs, places):
         local = torch.empty(tuple(leaf.shape), dtype=leaf.dtype) if empty \
             else leaf.detach().cpu()
-        mesh = pl.mesh
-        if mesh.size > 1:
+        mesh = None if pl is None else pl.mesh
+        if mesh is not None and mesh.size > 1:
             from torch.distributed.tensor import DTensor
 
             full = list(local.shape)
@@ -251,8 +291,13 @@ class CheckpointManager:
                  num_to_keep: Optional[int] = None,
                  score_attribute: Optional[str] = None,
                  score_order: str = "max"):
+        from .storage import get_filesystem, is_uri
+
         self.storage_dir = _local(storage_dir)
-        os.makedirs(self.storage_dir, exist_ok=True)
+        if is_uri(storage_dir):
+            get_filesystem(storage_dir)[0].makedirs(storage_dir)
+        else:
+            os.makedirs(self.storage_dir, exist_ok=True)
         self.num_to_keep = num_to_keep
         self.score_attribute = score_attribute
         self.score_order = score_order
@@ -288,7 +333,7 @@ class CheckpointManager:
             if worst is self._tracked[-1]:
                 worst = min(self._tracked[:-1], key=self._score)
             self._tracked.remove(worst)
-            shutil.rmtree(worst.checkpoint.path, ignore_errors=True)
+            _delete(worst.checkpoint.path)
 
     @property
     def best_checkpoint(self) -> Optional[Checkpoint]:

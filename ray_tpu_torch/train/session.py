@@ -1,12 +1,14 @@
 """In-worker training session: report / get_checkpoint /
 get_dataset_shard / get_context, the port of ``ray_tpu/train/session.py``.
 
-The reference's trainer, worker group and backend executor launch the
-loop on the runtime's actors and are not ported; a caller that runs one
-process per rank (``torchrun``, or the port's rank pool) starts a session
-with :func:`init_session` and reads the reports from its queue.
-``jax.process_count()`` becomes the process group's world size.
-Storage is a local (or mounted) directory.
+The trainer's worker actors (``worker_group.RayTrainWorker``) start a
+session for the user loop and stream its reports to the driver through
+the session's queue; a caller that runs one process per rank itself
+(``torchrun``, or the port's rank pool) may start one with
+:func:`init_session` and read the queue. ``jax.process_count()`` becomes
+the process group's world size. Storage is a local (or mounted)
+directory or a storage URI (``mock://``), to which the worker uploads
+its checkpoints itself.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import shutil
 import threading
 from typing import Any, Dict, Optional
 
-from .checkpoint import Checkpoint, _local
+from .checkpoint import Checkpoint, _delete, _local
 
 _session_lock = threading.Lock()
 _session: Optional["_TrainSession"] = None
@@ -36,7 +38,7 @@ class _TrainSession:
                  latest_checkpoint: Optional[Checkpoint] = None,
                  dataset_shards: Optional[Dict[str, Any]] = None,
                  trial_info: Optional[Dict[str, Any]] = None,
-                 incarnation: int = 0):
+                 incarnation: int = 0, wait_for_driver: bool = False):
         self.world_rank = world_rank
         self.world_size = world_size
         self.local_rank = local_rank
@@ -53,22 +55,32 @@ class _TrainSession:
         self._own_ckpts: list = []
         self._sharded_idx = 0
         self.incarnation = incarnation
+        # With a driver polling the queue (the trainer's workers),
+        # report returns once the driver has taken the report in, as
+        # Ray Train's does: a worker that dies right after a report has
+        # not lost it (nor its checkpoint) in its queue.
+        self._taken = threading.Semaphore(0) if wait_for_driver else None
 
     def report(self, metrics: Dict[str, Any],
                checkpoint: Optional[Checkpoint] = None):
         """Queue ``metrics`` (and the checkpoint's final path) for the
-        driver (``session.py:68``). A checkpoint is moved into
-        ``storage_dir`` under a rank- and incarnation-stamped name, unless
-        it is a collective sharded directory already inside it (one
-        checkpoint that every rank wrote into)."""
+        driver (``session.py:68``). A checkpoint is moved (uploaded, to
+        URI storage) into ``storage_dir`` under a rank- and
+        incarnation-stamped name, unless it is a collective sharded
+        directory already inside it (one checkpoint that every rank
+        wrote into); the driver only ever sees its final path."""
         payload: Dict[str, Any] = {
             "metrics": dict(metrics),
             "idx": self._report_idx,
             "rank": self.world_rank,
         }
         if checkpoint is not None:
+            from .storage import get_filesystem, is_uri
+
             in_place = False
-            if _process_count() > 1 and self.storage_dir:
+            if _process_count() > 1 and self.storage_dir \
+                    and not is_uri(self.storage_dir) \
+                    and not is_uri(checkpoint.path):
                 in_place = os.path.commonpath(
                     [checkpoint.path, self.storage_dir]) == self.storage_dir
             if not in_place and self.storage_dir:
@@ -76,12 +88,20 @@ class _TrainSession:
                 # begin at 0 again and must not overwrite tracked dirs
                 name = (f"checkpoint_rank{self.world_rank}_"
                         f"i{self.incarnation}_{self._report_idx:06d}")
-                os.makedirs(self.storage_dir, exist_ok=True)
-                dst = os.path.join(self.storage_dir, name)
-                if checkpoint.path != dst:
-                    if os.path.exists(dst):
-                        shutil.rmtree(dst)
-                    shutil.move(checkpoint.path, dst)
+                if is_uri(self.storage_dir):
+                    # shared storage: the worker uploads directly
+                    fs, _ = get_filesystem(self.storage_dir)
+                    dst = fs.join(self.storage_dir, name)
+                    fs.upload_dir(checkpoint.as_directory(), dst)
+                    if not is_uri(checkpoint.path):
+                        shutil.rmtree(checkpoint.path, ignore_errors=True)
+                else:
+                    os.makedirs(self.storage_dir, exist_ok=True)
+                    dst = os.path.join(self.storage_dir, name)
+                    if checkpoint.path != dst:
+                        if os.path.exists(dst):
+                            shutil.rmtree(dst)
+                        shutil.move(checkpoint.as_directory(), dst)
                 checkpoint = Checkpoint(dst)
             payload["checkpoint"] = checkpoint.to_dict()
             self.latest_checkpoint = checkpoint
@@ -91,9 +111,24 @@ class _TrainSession:
             if self.world_rank != 0 and self.storage_dir and not in_place:
                 self._own_ckpts.append(checkpoint.path)
                 while len(self._own_ckpts) > 2:
-                    shutil.rmtree(self._own_ckpts.pop(0), ignore_errors=True)
+                    _delete(self._own_ckpts.pop(0))
         self._report_idx += 1
         self.result_queue.put(payload)
+        if self._taken is not None:
+            self._taken.acquire()
+
+    def take(self, max_items: int) -> list:
+        """The driver's side: up to ``max_items`` queued reports, each
+        reporter released once its report is taken."""
+        items = []
+        for _ in range(max_items):
+            try:
+                items.append(self.result_queue.get_nowait())
+            except queue.Empty:
+                break
+            if self._taken is not None:
+                self._taken.release()
+        return items
 
     def get_checkpoint(self) -> Optional[Checkpoint]:
         return self.latest_checkpoint
@@ -140,7 +175,8 @@ def _require_session() -> _TrainSession:
     if s is None:
         raise RuntimeError(
             "No train session active — this API must be called inside a "
-            "training loop that started one (init_session)")
+            "train_loop_per_worker launched by a Trainer (or a loop that "
+            "started one with init_session)")
     return s
 
 

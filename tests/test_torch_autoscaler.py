@@ -3,8 +3,9 @@ persistence and usage stats, and one multi-node operations scenario run
 through both packages.
 
 The reference's cases of ``test_ha_autoscaler.py`` but the TPU slice
-provider's (it waits for ``ScalingConfig(topology=...)``: ROADMAP
-Queue 1 item 2), on the port. Port-only: a ``GPU`` node shape launched
+provider's (whose GPU counterpart is
+``test_torch_gang.py::test_gpu_slice_provider_gang_scale``), on the
+port. Port-only: a ``GPU`` node shape launched
 for a ``num_gpus=1`` actor, which restarts on a replacement node after
 its node is killed, then scales down once idle; and a scenario (a
 two-node cluster, the CLI's ``status``/``list nodes`` keys, job

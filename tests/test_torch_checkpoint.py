@@ -132,7 +132,8 @@ def test_checkpoint_manager_matches_reference(tmp_path):
 def test_session(tmp_path):
     """report moves a checkpoint into storage under a rank- and
     incarnation-stamped name; the session's sharded paths carry the rank
-    in a single process; the context reads the session."""
+    in a single process; the context reads the session; a storage URI is
+    a checkpoint path."""
     with pytest.raises(RuntimeError, match="No train session"):
         tsess.report({"loss": 1.0})
     store = tmp_path / "store"
@@ -157,8 +158,11 @@ def test_session(tmp_path):
             tsess.get_dataset_shard("train")
     finally:
         tsess.shutdown_session()
-    with pytest.raises(ValueError, match="storage URIs"):
-        tck.Checkpoint("mock://bucket/x")
+    # a storage URI stays a URI (train/storage.py); a cloud scheme is
+    # refused when the checkpoint is read
+    assert tck.Checkpoint("mock://bucket/x").path == "mock://bucket/x"
+    with pytest.raises(ValueError, match="cloud storage scheme"):
+        tck.Checkpoint("gs://bucket/x").as_directory()
 
 
 # --------------------------------------------------- sharded, two ranks

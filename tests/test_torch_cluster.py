@@ -3,7 +3,7 @@ daemons, scheduling policies across nodes, cross-node objects, node
 death, per-node dashboard agents and per-node serve proxies.
 
 The reference's cases of ``test_multinode.py`` (all but the gang train
-job, which waits for ``train/``: ROADMAP Queue 1 item 2),
+job, which is ``test_torch_gang.py::test_gang_train_job_across_nodes``),
 ``test_object_transfer.py``,
 ``test_object_recovery::test_multinode_node_death_objects_recovered``,
 ``test_node_agent::test_agents_through_head_and_direct`` and

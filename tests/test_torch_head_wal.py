@@ -4,8 +4,8 @@ reference's reader and the other way round (the format is the
 reference's).
 
 The reference's kill -9 case starts its head through the CLI
-(``python -m ray_tpu start --head``), which waits for the port's
-multi-node slice (ROADMAP Queue 1 item 1).
+(``python -m ray_tpu start --head``); its port is
+``tests/test_torch_cli.py::test_mutations_survive_kill9``.
 """
 from ray_tpu_torch._private.wal import HeadWAL
 from torch_runtime import case_time_limit  # noqa: F401

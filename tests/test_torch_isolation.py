@@ -108,7 +108,10 @@ def test_no_jax_or_reference_imports_in_source():
                  "util/metrics.py", "autoscaler.py", "yaml/__init__.py",
                  "yaml/loader.py", "yaml/dumper.py", "yaml/constructor.py",
                  "yaml/representer.py", "yaml/scanner.py",
-                 "yaml/parser.py", "yaml/emitter.py"):
+                 "yaml/parser.py", "yaml/emitter.py", "train/config.py",
+                 "train/storage.py", "train/worker_group.py",
+                 "train/backend_executor.py", "train/trainer.py",
+                 "train/__init__.py", "collective/__init__.py"):
         assert os.path.join(PKG, must) in files, must
     files.append(os.path.join(ROOT, "chip_smoke.py"))
     bad = []
@@ -703,6 +706,52 @@ try:
 finally:
     c.shutdown()
 
+# Train on the runtime: a gang of two workers in one gloo process group
+# takes a nano {dp: 2} step, saves one collective sharded checkpoint and
+# all-reduces through a store group.
+rt.init(num_cpus=4, num_gpus=0)
+try:
+    from ray_tpu_torch import train
+    from ray_tpu_torch.train import (RunConfig, ScalingConfig,
+                                     TorchBackendConfig, TorchTrainer)
+
+    def loop():
+        import sys
+
+        import torch
+
+        from ray_tpu_torch.collective import init_collective_group
+        from ray_tpu_torch.parallel import create_mesh
+
+        rank = train.get_context().get_world_rank()
+        cfg = gpt.CONFIGS["nano"]
+        init, step, _, _ = gpt.make_train_step(
+            cfg, create_mesh({"dp": 2}, device="cpu"))
+        state, m = step(init(seed=0), {"tokens": torch.arange(
+            4 * 17).reshape(4, 17) % cfg.vocab_size})
+        g = init_collective_group(2, rank, backend="store",
+                                  group_name="iso")
+        total = g.allreduce(torch.tensor([rank + 1.0]))
+        ckpt = train.Checkpoint.from_sharded_state(
+            {"step": torch.tensor(state["step"])})
+        train.report({"loss": m["loss"].item(), "sum": float(total[0]),
+                      "blocked": sorted(
+                          n for n in sys.modules if n.split(".")[0] in BLOCKED
+                          and sys.modules[n] is not None)}, checkpoint=ckpt)
+
+    res = TorchTrainer(
+        loop, torch_config=TorchBackendConfig(multi_controller=True),
+        scaling_config=ScalingConfig(num_workers=2),
+        run_config=RunConfig(storage_path=os.path.join(
+            os.environ["TMPDIR"], "iso_train"))).fit()
+    assert res.error is None, res.error
+    assert res.metrics["sum"] == 3.0 and res.metrics["blocked"] == [], \
+        res.metrics
+    assert np.isfinite(res.metrics["loss"])
+    assert os.path.basename(res.checkpoint.path) == "sharded_i0_000000"
+finally:
+    rt.shutdown()
+
 # A CLI head, a nano config deployed from YAML, one stream over HTTP.
 session = os.path.join(os.environ["TMPDIR"], "ray_tpu_torch", "iso_ops")
 env = dict(os.environ)
@@ -766,9 +815,11 @@ print("OPS-ISOLATED-OK")
 
 
 def test_operations_with_yaml_and_reference_blocked(tmp_path):
-    """The CLI head, a ``cluster_utils`` node and ``serve deploy`` of a
-    nano config from YAML, with ``yaml`` (and JAX, the reference, ...)
-    refused in every process: the vendored PyYAML serves the CLI."""
+    """The CLI head, a ``cluster_utils`` node, a ``TorchTrainer`` gang
+    (a nano ``{dp: 2}`` step, a store-group all-reduce, a sharded
+    checkpoint) and ``serve deploy`` of a nano config from YAML, with
+    ``yaml`` (and JAX, the reference, ...) refused in every process: the
+    vendored PyYAML serves the CLI."""
     (tmp_path / "sitecustomize.py").write_text(_BLOCK)
     app = tmp_path / "app"
     app.mkdir()

@@ -71,6 +71,91 @@ def test_dqn_learner_matches_reference(conv, weights):
                     adam_state(want["opt_state"])) <= STATE_RTOL
 
 
+# At one intra-op thread the conv case's parameters land 1.97e-5 from the
+# reference's (the default pool: 9.7e-6). The gap is f32 summation order,
+# not the update: the port alone moves a parameter by 2.3e-5 between one
+# thread and eight, and with every tensor, batch and bias correction in
+# f64 the two packages agree to ~6e-14 at one thread (this case).
+F64_DQN = r"""
+import sys
+import types
+
+import jax
+import numpy as np
+import torch
+
+jax.config.update("jax_enable_x64", True)
+torch.set_default_dtype(torch.float64)     # Adam's bias corrections too
+torch.set_num_threads(1)
+from ray_tpu import rllib as R
+from ray_tpu.rllib import dqn as rdqn
+from ray_tpu_torch import rllib as P
+from ray_tpu_torch.rllib import dqn as pdqn
+from rllib_parity import adam_state, tree_err
+
+# Both learners cast their batches to np.float32: keep f64 there.
+f64 = types.SimpleNamespace(**{k: getattr(np, k) for k in dir(np)
+                               if not k.startswith("__")})
+f64.float32 = np.float64
+rdqn.np = pdqn.np = f64
+
+
+def up(tree):
+    return jax.tree.map(lambda a: np.asarray(a, np.float64)
+                        if np.asarray(a).dtype == np.float32
+                        else np.asarray(a), tree)
+
+
+kw = dict(obs_dim=42 * 42 * 4, obs_shape=(42, 42, 4), conv=True,
+          hidden=(64,), num_actions=3)
+ref = rdqn.DQNLearner(R.RLModuleSpec(
+    **kw, module_cls=rdqn.EpsilonGreedyModule), seed=2)
+port = pdqn.DQNLearner(P.RLModuleSpec(
+    **kw, module_cls=pdqn.EpsilonGreedyModule), seed=2, device="cpu")
+ref.set_state(up(ref.get_state()))
+port.set_state(up(port.get_state()))
+rng = np.random.default_rng(3)
+for i in range(4):
+    b = {"obs": rng.random((32, 42, 42, 4)),
+         "rewards": rng.standard_normal(32),
+         "next_obs": rng.random((32, 42, 42, 4)),
+         "dones": (rng.random(32) < 0.1).astype(np.float64),
+         "actions": rng.integers(0, 3, 32), "weights": rng.random(32)}
+    ref.update(b)
+    port.update(b)
+    if i == 1:
+        ref.sync_target()
+        port.sync_target()
+want, got = ref.get_state(), port.get_state()
+assert jax.tree.leaves(got["params"])[0].dtype == np.float64
+print("ERRS", tree_err(got["params"], want["params"]),
+      tree_err(got["target"], want["target"]),
+      tree_err(got["opt_state"], adam_state(want["opt_state"])))
+"""
+
+
+def test_dqn_conv_gap_is_f32_summation_order():
+    """The conv DQN learners of ``test_dqn_learner_matches_reference``
+    (4 weighted updates, a target sync after the second) at f64 in both
+    packages, on one intra-op thread (in a subprocess: x64 is
+    process-wide in JAX): parameters, target and Adam moments agree to
+    1e-6, where at f32 one thread parts them by 1.97e-5."""
+    import os
+    import subprocess
+    import sys
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(
+                   [os.path.dirname(here), here,
+                    os.environ.get("PYTHONPATH", "")]))
+    out = subprocess.run([sys.executable, "-c", F64_DQN], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    errs = [float(x) for x in out.stdout.split("ERRS")[1].split()]
+    assert max(errs) <= 1e-6, errs
+
+
 def _dqn(mod):
     cfg = (mod.DQNConfig().environment("CartPole-v1")
            .env_runners(num_envs_per_env_runner=2,

@@ -2,7 +2,9 @@
 their siblings import them).
 
 :func:`rt_port` starts one ``ray_tpu_torch`` runtime for a whole test
-module and shuts it down after the module's last case: starting a
+module (8 CPUs, and ``RT_NUM_GPUS`` advertised GPUs where the module sets
+it: a GPU resource needs no card) and shuts it down after the module's
+last case: starting a
 runtime per case would cost a head and fresh worker processes each
 time. ``OMP_NUM_THREADS=1`` is set before ``init``, so the worker
 processes the head spawns (they inherit its environment) do not each
@@ -28,14 +30,14 @@ class CaseTimeout(Exception):
 
 
 @pytest.fixture(scope="module")
-def rt_port():
+def rt_port(request):
     import ray_tpu_torch as rt
 
     prev = os.environ.get("OMP_NUM_THREADS")
     os.environ["OMP_NUM_THREADS"] = "1"
     if rt.is_initialized():
         rt.shutdown()
-    rt.init(num_cpus=8, num_gpus=0)
+    rt.init(num_cpus=8, num_gpus=getattr(request.module, "RT_NUM_GPUS", 0))
     try:
         yield rt
     finally:

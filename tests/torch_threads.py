@@ -11,7 +11,10 @@ other test processes. Rank and follower processes set their own
 ``test_torch_rllib_offpolicy.py`` keeps the default pool: its DQN state
 bound (1e-5, ``rllib_parity.STATE_RTOL``) holds at the default thread
 count, and one thread sums the gradients in another order (a parameter
-1.97e-5 from the reference's after the updates)."""
+1.97e-5 from the reference's after the updates). That gap is f32
+summation order, not a difference in the update: at f64 the two
+packages agree to ~6e-14 on one thread
+(``test_dqn_conv_gap_is_f32_summation_order``)."""
 import pytest
 import torch
 
